@@ -1,0 +1,502 @@
+#!/usr/bin/env python3
+"""On-card smoke run of the PyTorch port (``src/repro_torch``) on one GPU.
+
+    python3 chip_smoke.py            # all phases, one CUDA device
+    python3 chip_smoke.py --quick    # build + kernel checks only
+
+Phases, one result line each:
+
+1. The card (``nvidia-smi`` name and power limit), torch and CUDA
+   versions; build the CUDA kernels from ``src/repro_torch/csrc`` (one
+   ``nvcc`` per source, started together) and launch the copy probe.
+2. Every kernel of the main path against its plain PyTorch version on the
+   card, in bf16, at main-path shapes: max |error| (tolerance 2e-2 abs +
+   2e-2 rel, the bf16 tolerance of the JAX package's kernel tests),
+   kernel, plain and library (``scaled_dot_product_attention`` /
+   ``rms_norm``, timed as a yardstick only) times, and the bound: the
+   larger of bytes over the card's memory rate and FLOPs over its peak.
+3. Serve: ``repro_torch.launch.serve`` at the full width and depth of
+   qwen2-1.5b (random weights from a seeded ``torch.Generator``), SlackFit
+   through the port's Router; every query must be answered, the serve
+   phase must build no kernel, and every kernel must have launched.
+4. Decode: 8 greedy ``SubnetExecutor.decode_step`` steps for the smallest
+   and the largest Pareto subnet; finite logits, decode kernel launched.
+5. Trace: where a warmed full-width prefill and decode step spend their
+   time (host wall clock, device kernel time from ``torch.profiler``, the
+   device's idle share, the top kernels, the launches of each kernel).
+6. Reference: the full-width model cut to 2 layers, kernels in bf16 on the
+   card against the plain fp32 path on the CPU, prefill and decode logits.
+
+Then one JSON line with every kernel's numbers, and last the device line.
+Exits non-zero, with no result line, when CUDA is unavailable, the port is
+missing, or any phase fails.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+BF16_TOL = dict(atol=2e-2, rtol=2e-2)
+# (name substring, memory bytes/s, dense bf16 tensor FLOP/s, fp32 FLOP/s)
+# from NVIDIA's data sheets; the first match wins, SXM parts last
+PEAKS = (("H100 PCIe", 2.0e12, 756e12, 51e12),
+         ("H100 NVL", 3.9e12, 835e12, 60e12),
+         ("H200", 4.8e12, 989e12, 67e12),
+         ("H100", 3.35e12, 989e12, 67e12))
+
+
+def fail(msg: str) -> None:
+    print(f"FAIL: {msg}", flush=True)
+    sys.exit(1)
+
+
+def say(tag: str, **kw) -> None:
+    print(f"[{tag}] " + json.dumps(kw, default=str), flush=True)
+
+
+def time_ms(torch, fn, iters: int = 50, warmup: int = 5) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+class Card:
+    def __init__(self, torch):
+        self.name = torch.cuda.get_device_name(0)
+        for sub, bw, bf16, fp32 in PEAKS:
+            if sub in self.name:
+                self.peak = sub
+                self.bw, self.bf16, self.fp32 = bw, bf16, fp32
+                break
+        else:
+            fail(f"no peak rates known for {self.name!r}")
+
+    def bound(self, nbytes: float, flops: float, fp32: bool = False):
+        t_mem = nbytes / self.bw * 1e3
+        t_op = flops / (self.fp32 if fp32 else self.bf16) * 1e3
+        return (t_mem, "bytes") if t_mem >= t_op else (t_op, "operations")
+
+
+# --------------------------------------------------------------------------
+# phase 1: card, build, probe
+# --------------------------------------------------------------------------
+
+
+def phase_build(torch, card):
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    if smi.returncode != 0 or not smi.stdout.strip():
+        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+    from repro_torch import compat
+    from repro_torch.kernels import build
+    with compat.BuildCounter() as bc:
+        t0 = time.perf_counter()
+        build.library()
+        build_s = time.perf_counter() - t0
+    x = torch.randn((8, 128), device="cuda")
+    y = build.copy_probe(x)
+    torch.cuda.synchronize()
+    if not torch.equal(x, y):
+        fail("copy probe returned different data")
+    probe_ms = time_ms(torch, lambda: build.copy_probe(x))
+    probe_plain_ms = time_ms(torch, lambda: x.clone())
+    probe_bound_ms, _ = card.bound(2 * x.numel() * 4, 0)
+    try:
+        import triton
+        triton_version = triton.__version__
+    except ImportError:
+        fail("triton is not importable; subnet_rmsnorm needs it")
+    ptxas = [ln.strip() for ln in build.ptxas_log().splitlines()
+             if "registers" in ln or "spill" in ln]
+    say("build", torch=torch.__version__, cuda=torch.version.cuda,
+        triton=triton_version, device=torch.cuda.get_device_name(0),
+        nvcc_builds=bc.count, build_seconds=round(build_s, 3),
+        probe_ok=True, probe_ms=probe_ms, probe_plain_ms=probe_plain_ms,
+        probe_bound_ms=probe_bound_ms, ptxas=ptxas)
+
+
+# --------------------------------------------------------------------------
+# phase 2: kernels against their plain versions
+# --------------------------------------------------------------------------
+
+
+def _compare(torch, name, got, want):
+    err = (got.float() - want.float()).abs().max().item()
+    if not torch.allclose(got.float(), want.float(), **BF16_TOL):
+        fail(f"{name}: kernel disagrees with its plain version, "
+             f"max |err| {err}")
+    if not torch.isfinite(got.float()).all():
+        fail(f"{name}: non-finite output")
+    return err
+
+
+def phase_kernels(torch, card):
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import subnet_rmsnorm as rn
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    dev = "cuda"
+    results = {}
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    # -- subnet_rmsnorm: x (B*S, 1536) at prefill, (B, 1536) at decode ----
+    d, n_sub = 1536, 18
+    gamma = 1 + 0.1 * randn(n_sub, d, dtype=torch.float32)
+    errs = []
+    for rows in (128, 8):
+        x = randn(rows, d)
+        for sid_v in (0, n_sub - 1):
+            sid = torch.full((), sid_v, dtype=torch.int32, device=dev)
+            got = rn.subnet_rmsnorm(x, gamma, sid)
+            want = rn.subnet_rmsnorm_plain(x, gamma, sid)
+            errs.append(_compare(torch, f"subnet_rmsnorm rows={rows} "
+                                        f"sid={sid_v}", got, want))
+    x = randn(128, d)
+    sid = torch.full((), n_sub - 1, dtype=torch.int32, device=dev)
+    w_row = gamma[n_sub - 1].to(x.dtype)
+    lib = getattr(F, "rms_norm", None)
+    bound, by = card.bound(2 * x.numel() * 2 + d * 4 + 4, 4 * x.numel(),
+                           fp32=True)
+    results["subnet_rmsnorm"] = dict(
+        shape=[128, d], max_abs_err=max(errs),
+        ms=time_ms(torch, lambda: rn.subnet_rmsnorm(x, gamma, sid)),
+        plain_ms=time_ms(torch, lambda: rn.subnet_rmsnorm_plain(x, gamma, sid)),
+        library_ms=(time_ms(torch, lambda: lib(x, (d,), w_row, 1e-5))
+                    if lib is not None else None),
+        bound_ms=bound, bound_by=by)
+    say("kernel", name="subnet_rmsnorm", cases=len(errs),
+        **results["subnet_rmsnorm"])
+
+    # -- flash_attention: q (B,12,S,128), k/v (B,2,S,128) ------------------
+    B, Hq, Hkv, hd = 8, 12, 2, 128
+    G = Hq // Hkv
+
+    def live_pairs(S, window, kv_len):
+        n = 0
+        for qp in range(S):
+            lo = max(0, qp - window + 1) if window else 0
+            n += max(0, min(qp + 1, kv_len) - lo)
+        return n
+
+    errs = []
+    head = None
+    for S, window, kv_len in ((16, 0, None), (256, 0, None), (200, 64, 150)):
+        q, k, v = randn(B, Hq, S, hd), randn(B, Hkv, S, hd), randn(B, Hkv, S, hd)
+        kvl = (None if kv_len is None
+               else torch.full((), kv_len, dtype=torch.int32, device=dev))
+        got = fa.flash_attention(q, k, v, causal=True, window=window,
+                                 kv_len=kvl)
+        want = fa.flash_attention_plain(q, k, v, causal=True, window=window,
+                                        kv_len=kvl)
+        err = _compare(torch, f"flash_attention S={S} window={window} "
+                              f"kv_len={kv_len}", got, want)
+        errs.append(err)
+        say("kernel-case", name="flash_attention", S=S, window=window,
+            kv_len=kv_len, max_abs_err=err)
+        if S == 256:
+            head = (S, q, k, v)
+    S, q, k, v = head
+    kx, vx = k.repeat_interleave(G, dim=1), v.repeat_interleave(G, dim=1)
+    nbytes = 2 * (q.numel() * 2 + k.numel() + v.numel())
+    flops = 4 * hd * live_pairs(S, 0, S) * B * Hq
+    bound, by = card.bound(nbytes, flops)
+    results["flash_attention"] = dict(
+        shape=[B, Hq, Hkv, S, hd], max_abs_err=max(errs),
+        ms=time_ms(torch, lambda: fa.flash_attention(q, k, v)),
+        plain_ms=time_ms(torch, lambda: fa.flash_attention_plain(q, k, v),
+                         iters=10),
+        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, kx, vx, is_causal=True)),
+        bound_ms=bound, bound_by=by)
+    say("kernel", name="flash_attention", **results["flash_attention"])
+
+    # -- decode_attention: q (B,12,1,128), cache (B,2,256,128) -------------
+    Smax = 256
+    q, kc, vc = randn(B, Hq, 1, hd), randn(B, Hkv, Smax, hd), randn(B, Hkv, Smax, hd)
+    kcx, vcx = kc.repeat_interleave(G, dim=1), vc.repeat_interleave(G, dim=1)
+    errs = []
+    for index in (0, 100, Smax - 1):
+        idx = torch.full((), index, dtype=torch.int32, device=dev)
+        for window in (0, 64):
+            got = da.decode_attention(q, kc, vc, idx, window=window)
+            want = da.decode_attention_plain(q, kc, vc, idx, window=window)
+            err = _compare(torch, f"decode_attention index={index} "
+                                  f"window={window}", got, want)
+            errs.append(err)
+            say("kernel-case", name="decode_attention", Smax=Smax,
+                index=index, window=window, max_abs_err=err)
+    index = Smax - 1
+    idx = torch.full((), index, dtype=torch.int32, device=dev)
+    mask = (torch.arange(Smax, device=dev) <= index)[None, None, None, :]
+    live = index + 1
+    nbytes = 2 * (2 * q.numel() + 2 * B * Hkv * live * hd)
+    bound, by = card.bound(nbytes, 4 * hd * live * B * Hq)
+    results["decode_attention"] = dict(
+        shape=[B, Hq, Hkv, Smax, hd], index=index, max_abs_err=max(errs),
+        ms=time_ms(torch, lambda: da.decode_attention(q, kc, vc, idx)),
+        plain_ms=time_ms(torch, lambda: da.decode_attention_plain(
+            q, kc, vc, idx)),
+        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, kcx, vcx, attn_mask=mask)),
+        bound_ms=bound, bound_by=by)
+    say("kernel", name="decode_attention", **results["decode_attention"])
+    return results
+
+
+# --------------------------------------------------------------------------
+# phases 3-5: the main path
+# --------------------------------------------------------------------------
+
+PATH_KERNELS = ("subnet_rmsnorm", "flash_attention", "decode_attention")
+# device symbols of the port's kernels, as the profiler names them
+PORT_KERNEL_SYMBOLS = ("_rmsnorm_rows", "flash_fwd_kernel",
+                       "decode_split_kernel", "decode_combine_kernel")
+
+
+def phase_serve(torch):
+    from repro_torch import compat
+    from repro_torch.launch import serve
+    compat.reset_launch_counts()
+    out = serve.run(["--execute", "real", "--arch", "qwen2-1.5b",
+                     "--queries", "32", "--seq-len", "16"])
+    launches = compat.launch_counts()
+    say("serve", arch=out["arch"], size=out["size"],
+        queries=out["queries"], served=out["served"],
+        slo_attainment=out["slo_attainment"],
+        p50_latency_ms=out["p50_latency_ms"],
+        p99_latency_ms=out["p99_latency_ms"], rate_qps=out["rate_qps"],
+        slo_ms=out["slo_ms"], lat_fast_ms=out["lat_fast_ms"],
+        lat_slow_ms=out["lat_slow_ms"], init_seconds=out["init_seconds"],
+        warmup=out["warmup"], executor=out["executor"],
+        serve_phase_launches=out["kernel_launches"], launches=launches,
+        serve_phase_builds=out["serve_phase_builds"])
+    if out["size"] != "full":
+        fail("serve did not run the full-width model")
+    if out["queries"] < 1 or out["served"] != out["queries"]:
+        fail(f"served {out['served']} of {out['queries']} queries")
+    if out["serve_phase_builds"] != 0:
+        fail(f"serve phase built {out['serve_phase_builds']} kernels")
+    for name in ("subnet_rmsnorm", "flash_attention"):
+        if out["kernel_launches"].get(name, 0) <= 0:
+            fail(f"{name} never launched while serving")
+    return launches
+
+
+def phase_decode(torch):
+    import numpy as np
+    from repro_torch import compat
+    from repro_torch.configs import get_config
+    from repro_torch.serving.executor import build_executor
+    cfg = get_config("qwen2-1.5b")
+    ex = build_executor(cfg, seed=1, device="cuda")
+    compat.reset_launch_counts()
+    B, steps = 8, 8
+    rng = np.random.default_rng(0)
+    report = {}
+    for idx in (0, ex.n_subnets - 1):
+        cache = ex.init_cache(B, 32)
+        tok = rng.integers(0, cfg.vocab_size, (B, 1)).astype(np.int32)
+        t0 = time.perf_counter()
+        for i in range(steps):
+            logits, cache = ex.decode_step(idx, tok, cache, i)
+            if logits.shape != (B, cfg.vocab_size) \
+                    or not np.isfinite(logits).all():
+                fail(f"decode subnet {idx} step {i}: bad logits "
+                     f"{logits.shape}")
+            tok = logits.argmax(-1).astype(np.int32)[:, None]
+        report[f"subnet_{idx}_ms_per_step"] = \
+            (time.perf_counter() - t0) / steps * 1e3
+    launches = compat.launch_counts()
+    say("decode", batch=B, steps=steps, subnets=[0, ex.n_subnets - 1],
+        launches=launches, **report)
+    if launches.get("decode_attention", 0) <= 0:
+        fail("decode_attention never launched while decoding")
+    return launches
+
+
+def phase_trace(torch):
+    """Where a warmed full-width prefill (B=8, S=16, largest subnet) and a
+    decode step spend their time: host wall clock against device kernel
+    time from torch.profiler, and the kernel launches of each."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import compat
+    from repro_torch.configs import get_config
+    from repro_torch.serving.executor import build_executor
+    ex = build_executor(get_config("qwen2-1.5b"), seed=0, device="cuda")
+    ex.warmup(batches=(8,), seqs=(16,), decode=True)
+    toks, idx, n = np.ones((8, 16), np.int32), ex.n_subnets - 1, 10
+    cache = ex.init_cache(8, 16)
+    steps = {"prefill": lambda: ex.prefill(idx, toks),
+             "decode": lambda: ex.decode_step(idx, toks[:, :1], cache, 3)}
+    report = {}
+    for kind, step in steps.items():
+        for _ in range(3):
+            step()
+        compat.reset_launch_counts()
+        step()
+        launches = compat.launch_counts()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        wall_ms = (time.perf_counter() - t0) / n * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                step()
+        per_kernel = {}
+        for ev in prof.events():
+            if ev.device_type == torch.autograd.DeviceType.CUDA:
+                us = getattr(ev, "self_device_time_total", None)
+                if us is None:
+                    us = ev.self_cuda_time_total
+                tot, cnt = per_kernel.get(ev.name, (0.0, 0))
+                per_kernel[ev.name] = (tot + us, cnt + 1)
+        dev_ms = sum(t for t, _ in per_kernel.values()) / n / 1e3
+        top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:6]
+        port = {}
+        for name, (us, cnt) in per_kernel.items():
+            for tag in PORT_KERNEL_SYMBOLS:
+                if tag in name:
+                    ms, c = port.get(tag, (0.0, 0))
+                    port[tag] = (ms + us / n / 1e3, c + cnt // n)
+        report[kind] = dict(
+            wall_ms=wall_ms,
+            device_ms=dev_ms if dev_ms > 0 else "not measured",
+            device_idle_share=(1 - dev_ms / wall_ms) if dev_ms > 0
+            else "not measured",
+            device_kernels=sum(c for _, c in per_kernel.values()) / n,
+            launches=launches,
+            port_kernels_ms={k: [ms, c] for k, (ms, c) in port.items()},
+            top=[[name[:60], t / n / 1e3, c // n] for name, (t, c) in top])
+    say("trace", batch=8, seq=16, subnet=idx, **report)
+
+
+def phase_reference(torch):
+    """Full width, 2 layers: kernels (bf16, card) vs plain (fp32, CPU)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import Stage
+    from repro_torch.core import subnet as sn
+    from repro_torch.core.pareto import pareto_subnets
+    from repro_torch.models import lm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("qwen2-1.5b")
+    cfg = cfg.replace(stages=(Stage(("attn", "mlp"), repeat=2),))
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    gpu = lm.init_model(cfg, gen, "cuda")
+
+    def to_cpu(t):
+        if isinstance(t, dict):
+            return {k: to_cpu(v) for k, v in t.items()}
+        if isinstance(t, list):
+            return [to_cpu(v) for v in t]
+        return t.float().cpu()
+
+    cpu = to_cpu(gpu)
+    cfg32 = cfg.replace(dtype="float32")
+    rng = np.random.default_rng(3)
+    toks = rng.integers(0, cfg.vocab_size, (2, 16)).astype(np.int32)
+    pts = pareto_subnets(cfg)
+    worst = 0.0
+    with torch.no_grad():
+        for p in (pts[0], pts[-1]):
+            ctrl = sn.make_control(cfg, p.sub)
+            got = lm.forward(gpu, cfg, {"tokens": toks}, ctrl).float().cpu()
+            want = lm.forward(cpu, cfg32, {"tokens": toks}, ctrl)
+            scale = want.abs().max().item()
+            err = (got - want).abs().max().item() / scale
+            worst = max(worst, err)
+            if not torch.allclose(got, want, atol=2e-2 * scale, rtol=2e-2):
+                fail(f"reference: prefill logits off by {err} (relative)")
+            cg = lm.init_cache(cfg, 2, 16, device="cuda")
+            cc = lm.init_cache(cfg32, 2, 16, device="cpu")
+            for i in range(4):
+                tk = toks[:, i:i + 1]
+                lg, cg = lm.decode_step(gpu, cfg, tk, ctrl, cg, i)
+                lc, cc = lm.decode_step(cpu, cfg32, tk, ctrl, cc, i)
+                lg = lg.float().cpu()
+                scale = lc.abs().max().item()
+                err = (lg - lc).abs().max().item() / scale
+                worst = max(worst, err)
+                if not torch.allclose(lg, lc, atol=2e-2 * scale, rtol=2e-2):
+                    fail(f"reference: decode step {i} off by {err}")
+    say("reference", layers=2, d_model=cfg.d_model, vocab=cfg.vocab_size,
+        subnets=[0, len(pts) - 1], max_rel_err=worst, tol="2e-2 of max|ref|")
+
+
+# --------------------------------------------------------------------------
+
+
+SOURCES = {
+    "subnet_rmsnorm": ("triton", "src/repro_torch/kernels/subnet_rmsnorm.py",
+                       "src/repro/kernels/subnet_rmsnorm.py:42"),
+    "flash_attention": ("cuda", "src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:100"),
+    "decode_attention": ("cuda", "src/repro_torch/csrc/decode_attention.cu",
+                         "src/repro/kernels/decode_attention.py:91"),
+}
+
+
+def main(argv) -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    try:
+        import repro_torch  # noqa: F401
+    except ImportError as exc:
+        print(f"chip_smoke: the port is not importable ({exc}); run from "
+              f"the repository root", file=sys.stderr)
+        return 3
+    card = Card(torch)
+    phase_build(torch, card)
+    kernels = phase_kernels(torch, card)
+    if "--quick" in argv:
+        return 0
+    serve_launches = phase_serve(torch)
+    decode_launches = phase_decode(torch)
+    phase_trace(torch)
+    phase_reference(torch)
+    line = []
+    for name in PATH_KERNELS:
+        route, source, replaces = SOURCES[name]
+        k = kernels[name]
+        line.append({"name": name, "route": route, "source": source,
+                     "replaces": replaces,
+                     "launches": serve_launches.get(name, 0)
+                     + decode_launches.get(name, 0),
+                     "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+                     "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+                     "bound_by": k["bound_by"],
+                     "library_ms": k["library_ms"]})
+    if any(e["launches"] <= 0 for e in line):
+        fail("a kernel of the path was never launched")
+    print(json.dumps({"kernels": line}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

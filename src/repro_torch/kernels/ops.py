@@ -1,0 +1,131 @@
+"""Public kernel entry points, routed by device (port of
+``repro/kernels/ops.py``, lines 122-206).
+
+Each kernel has two registered implementations in
+:mod:`repro_torch.kernels.dispatch`: ``cuda`` (the hand-written Hopper
+kernel) and ``torch`` (its plain version). The device of the first tensor
+argument picks one; a per-call ``tier=`` must agree with it. There is no
+fallthrough: ``sliced_matmul`` has no CUDA kernel yet, so a CUDA tensor
+raises there instead of silently running the plain version.
+"""
+from __future__ import annotations
+
+from repro_torch.kernels import ref
+from repro_torch.kernels import decode_attention as _decode
+from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import subnet_rmsnorm as _rmsnorm
+from repro_torch.kernels.dispatch import DISPATCHER, register
+
+
+@register("flash_attention", "cuda")
+def _flash_cuda(q, k, v, *, causal, window, kv_len, q_block, kv_block):
+    # tile sizes are fixed by the kernel (64 x 64); the block arguments
+    # bind only the plain version
+    return _flash.flash_attention(q, k, v, causal=causal, window=window,
+                                  kv_len=kv_len)
+
+
+@register("flash_attention", "torch")
+def _flash_torch(q, k, v, *, causal, window, kv_len, q_block, kv_block):
+    return _flash.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                        kv_len=kv_len, q_block=q_block,
+                                        kv_block=kv_block)
+
+
+@register("decode_attention", "cuda")
+def _decode_cuda(q, k_cache, v_cache, index, *, window, kv_block):
+    return _decode.decode_attention(q, k_cache, v_cache, index, window=window)
+
+
+@register("decode_attention", "torch")
+def _decode_torch(q, k_cache, v_cache, index, *, window, kv_block):
+    return _decode.decode_attention_plain(q, k_cache, v_cache, index,
+                                          window=window, kv_block=kv_block)
+
+
+@register("sliced_matmul", "torch")
+def _sliced_torch(x, w, active_in, active_out, *, bm=0, bk=0, bn=0):
+    y = ref.sliced_matmul_ref(x.reshape(-1, x.shape[-1]), w, active_in,
+                              active_out)
+    return y.reshape(*x.shape[:-1], w.shape[1])
+
+
+@register("subnet_rmsnorm", "cuda")
+def _rmsnorm_cuda(x, gamma_table, subnet_id, *, eps):
+    return _rmsnorm.subnet_rmsnorm(x, gamma_table, subnet_id, eps=eps)
+
+
+@register("subnet_rmsnorm", "torch")
+def _rmsnorm_torch(x, gamma_table, subnet_id, *, eps):
+    return _rmsnorm.subnet_rmsnorm_plain(x, gamma_table, subnet_id, eps=eps)
+
+
+# --------------------------------------------------------------------------
+# public entry points
+# --------------------------------------------------------------------------
+
+
+def flash_attention(q, k, v, *, causal=True, window=0, kv_len=None,
+                    q_block=256, kv_block=256, tier=None):
+    return DISPATCHER.call(
+        "flash_attention", q, k, v, causal=causal, window=window,
+        kv_len=kv_len, q_block=q_block, kv_block=kv_block, tier=tier)
+
+
+def decode_attention(q, k_cache, v_cache, index, *, window=0, kv_block=256,
+                     tier=None):
+    return DISPATCHER.call(
+        "decode_attention", q, k_cache, v_cache, index, window=window,
+        kv_block=kv_block, tier=tier)
+
+
+def sliced_matmul(x, w, active_in, active_out, *, bm=128, bk=128, bn=128,
+                  tier=None):
+    return DISPATCHER.call(
+        "sliced_matmul", x, w, active_in, active_out, bm=bm, bk=bk, bn=bn,
+        tier=tier)
+
+
+def subnet_rmsnorm(x, gamma_table, subnet_id, *, eps=1e-5, tier=None):
+    return DISPATCHER.call(
+        "subnet_rmsnorm", x, gamma_table, subnet_id, eps=eps, tier=tier)
+
+
+# --------------------------------------------------------------------------
+# model-grade wiring (used by models/attention and core/operators)
+# --------------------------------------------------------------------------
+
+
+def model_flash_attention(q, k, v, *, causal=True, window=0, q_offset=0,
+                          kv_len=None, q_block=512, kv_block=512, scale=None):
+    """Full-sequence attention for model forward passes.
+
+    The kernel does not take ``q_offset``/``scale``. On CPU tensors a call
+    using them takes the plain path (the rule of
+    ``repro/kernels/ops.py:173``); on any other device it raises, since the
+    device alone decides between kernel and plain version."""
+    if not (isinstance(q_offset, int) and q_offset == 0 and scale is None):
+        if q.device.type != "cpu":
+            raise NotImplementedError(
+                f"flash_attention: q_offset / scale on {q.device} tensors: "
+                f"the kernel takes neither yet; they come with the slice "
+                f"that needs them (chunked prefill, a cached prefix)")
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       kv_len=kv_len, scale=scale,
+                                       q_offset=q_offset, q_block=q_block,
+                                       kv_block=kv_block)
+    return flash_attention(q, k, v, causal=causal, window=window,
+                           kv_len=kv_len, q_block=q_block, kv_block=kv_block)
+
+
+def model_decode_attention(q, k_cache, v_cache, *, index, window=0,
+                           kv_block=512):
+    """Single-token cached decode for model decode steps."""
+    return decode_attention(q, k_cache, v_cache, index, window=window,
+                            kv_block=kv_block)
+
+
+def model_subnet_rmsnorm(x, gamma_table, subnet_id, *, eps=1e-5):
+    """SubnetNorm (RMS flavor) for model blocks."""
+    return subnet_rmsnorm(x, gamma_table, subnet_id, eps=eps)
+

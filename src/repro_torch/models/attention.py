@@ -1,0 +1,182 @@
+"""Attention: GQA/MHA with RoPE and partial rotary, sliding window,
+SubNetAct head elasticity, flash prefill and cached decode (port of
+``repro/models/attention.py``).
+
+The attention itself goes through the kernel entry points
+(``kernels.ops.model_flash_attention`` / ``model_decode_attention``): the
+CUDA kernels on the GPU, their plain versions on the CPU. M-RoPE and the
+WeightSlice switch mode come with later slices of the port.
+"""
+from __future__ import annotations
+
+from functools import partial
+from typing import Dict
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core import operators as ops
+from repro_torch.core.subnet import head_group_size
+from repro_torch.models.common import dense_init, ones_table
+
+# --------------------------------------------------------------------------
+# Rotary embeddings
+# --------------------------------------------------------------------------
+
+
+def rope_freqs(head_dim_rot: int, theta: float, device) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim_rot, 2, dtype=torch.float32,
+                                         device=device) / head_dim_rot))
+
+
+def _rotate_half(x):
+    x1, x2 = torch.chunk(x, 2, dim=-1)
+    return torch.cat([-x2, x1], dim=-1)
+
+
+def apply_rope(x, positions, theta: float, rotary_pct: float = 1.0,
+               mrope_sections=()):
+    """x: (B, S, H, hd); positions: (B, S) integer tensor."""
+    if mrope_sections:
+        raise NotImplementedError("M-RoPE (qwen2-vl) comes with a later "
+                                  "slice of the port")
+    hd = x.shape[-1]
+    rot = int(hd * rotary_pct)
+    rot -= rot % 2
+    if rot == 0:
+        return x
+    x_rot, x_pass = x[..., :rot], x[..., rot:]
+    inv = rope_freqs(rot, theta, x.device)                  # (rot/2,)
+    ang = positions.float()[..., None] * inv                # (B, S, rot/2)
+    ang = torch.cat([ang, ang], dim=-1)[:, :, None, :]      # (B, S, 1, rot)
+    x_rot = (x_rot * torch.cos(ang).to(x.dtype)
+             + _rotate_half(x_rot) * torch.sin(ang).to(x.dtype))
+    return torch.cat([x_rot, x_pass], dim=-1)
+
+
+# --------------------------------------------------------------------------
+# Attention block (params + forward), SubNetAct-elastic
+# --------------------------------------------------------------------------
+
+
+def init_attention(cfg: ArchConfig, dtype, generator, device) -> Dict:
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    Hq, Hkv = cfg.n_heads, cfg.n_kv_heads
+    init = partial(dense_init, dtype=dtype, generator=generator, device=device)
+    p = {
+        "wq": init((d, Hq * hd)),
+        "wk": init((d, Hkv * hd)),
+        "wv": init((d, Hkv * hd)),
+        "wo": init((Hq * hd, d)),
+        "norm_gamma": ones_table(cfg.elastic.num_subnets, d, device),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((Hq * hd,), dtype=dtype, device=device)
+        p["bk"] = torch.zeros((Hkv * hd,), dtype=dtype, device=device)
+        p["bv"] = torch.zeros((Hkv * hd,), dtype=dtype, device=device)
+    if cfg.norm == "layernorm":
+        p["norm_beta"] = torch.zeros((cfg.elastic.num_subnets, d),
+                                     dtype=torch.float32, device=device)
+    return p
+
+
+def _project_qkv(p, cfg: ArchConfig, x, positions):
+    hd = cfg.resolved_head_dim
+    B, S, _ = x.shape
+    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    if "bq" in p:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(B, S, cfg.n_heads, hd)
+    k = k.reshape(B, S, cfg.n_kv_heads, hd)
+    v = v.reshape(B, S, cfg.n_kv_heads, hd)
+    if cfg.pos_embed == "rope":
+        q = apply_rope(q, positions, cfg.rope_theta, cfg.rotary_pct,
+                       cfg.mrope_sections)
+        k = apply_rope(k, positions, cfg.rope_theta, cfg.rotary_pct,
+                       cfg.mrope_sections)
+    return q, k, v
+
+
+def head_mask(cfg: ArchConfig, o, head_width):
+    """Zero the outputs of inactive query heads. o: (..., Hq, hd).
+
+    GQA: active heads are a per-KV-group prefix (cache layout stays
+    identical across subnets); MHA: a global prefix."""
+    Hq = cfg.n_heads
+    group = head_group_size(cfg)
+    iota = torch.arange(Hq, device=o.device)
+    if group > 1:
+        kv = Hq // group
+        per_group = head_width // kv
+        m = (iota % group) < per_group
+    else:
+        m = iota < head_width
+    shape = [1] * o.dim()
+    shape[-2] = Hq
+    return o * m.reshape(shape).to(o.dtype)
+
+
+def attention_block(p, cfg: ArchConfig, x, ctrl, positions, *,
+                    slice_mode: str = "mask", attn_impl=None,
+                    q_block: int = 512, kv_block: int = 512):
+    """Full-sequence attention with pre-norm. x: (B,S,d) -> (B,S,d).
+
+    ``attn_impl=None`` takes the kernel entry point for the device of
+    ``x``; pass an impl to pin one (tests)."""
+    ops.check_slice_mode(slice_mode)
+    if attn_impl is None:
+        from repro_torch.kernels.ops import model_flash_attention
+        attn_impl = partial(model_flash_attention, q_block=q_block,
+                            kv_block=kv_block)
+    h = ops.subnet_norm(x, p["norm_gamma"], ctrl["subnet_id"],
+                        beta_table=p.get("norm_beta"), eps=cfg.norm_eps,
+                        kind=cfg.norm)
+    q, k, v = _project_qkv(p, cfg, h, positions)
+    B, S, Hq, hd = q.shape
+    o = attn_impl(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                  causal=True, window=cfg.sliding_window)
+    o = o.transpose(1, 2)                               # (B,S,H,hd)
+    # WeightSlice(mask): zero the *outputs* of inactive heads —
+    # paper-faithful routing (inactive channels contribute nothing).
+    o = head_mask(cfg, o, ctrl["head_width"])
+    y = o.reshape(B, S, Hq * hd) @ p["wo"]
+    return x + y.to(x.dtype)
+
+
+def attention_decode(p, cfg: ArchConfig, x, ctrl, cache, index, *,
+                     slice_mode: str = "mask", decode_impl=None,
+                     kv_block: int = 512):
+    """One-token decode. x: (B,1,d); cache: {'k','v'}: (B,Hkv,Smax,hd);
+    ``index``: 0-d int32 tensor on x's device (the new token's absolute
+    position). Unlike the functional JAX version, the new k/v are written
+    into ``cache`` in place; the returned dict holds the same tensors."""
+    ops.check_slice_mode(slice_mode)
+    if decode_impl is None:
+        from repro_torch.kernels.ops import model_decode_attention
+        decode_impl = partial(model_decode_attention, kv_block=kv_block)
+    h = ops.subnet_norm(x, p["norm_gamma"], ctrl["subnet_id"],
+                        beta_table=p.get("norm_beta"), eps=cfg.norm_eps,
+                        kind=cfg.norm)
+    B = x.shape[0]
+    positions = index.reshape(1, 1).expand(B, 1)
+    q, k, v = _project_qkv(p, cfg, h, positions)
+    k_cache, v_cache = cache["k"], cache["v"]
+    Smax = k_cache.shape[2]
+    slot = torch.remainder(index, Smax) if cfg.sliding_window else index
+    slot = slot.reshape(1).long()
+    k_cache.index_copy_(2, slot, k.transpose(1, 2).to(k_cache.dtype))
+    v_cache.index_copy_(2, slot, v.transpose(1, 2).to(v_cache.dtype))
+    o = decode_impl(q.transpose(1, 2), k_cache, v_cache, index=index,
+                    window=cfg.sliding_window)
+    o = o.transpose(1, 2)                               # (B,1,H,hd)
+    o = head_mask(cfg, o, ctrl["head_width"])
+    y = o.reshape(B, 1, cfg.n_heads * cfg.resolved_head_dim) @ p["wo"]
+    return x + y.to(x.dtype), {"k": k_cache, "v": v_cache}
+
+
+def init_attention_cache(cfg: ArchConfig, batch: int, seq_len: int, dtype,
+                         device) -> Dict:
+    Smax = min(seq_len, cfg.sliding_window) if cfg.sliding_window else seq_len
+    shape = (batch, cfg.n_kv_heads, Smax, cfg.resolved_head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}

@@ -1,0 +1,46 @@
+"""Dense FFN (SwiGLU / GELU) with SubNetAct width elasticity (port of
+``repro/models/ffn.py``, WeightSlice mask mode)."""
+from __future__ import annotations
+
+from functools import partial
+from typing import Dict
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core import operators as ops
+from repro_torch.models.common import dense_init, ones_table
+
+
+def init_mlp(cfg: ArchConfig, dtype, generator, device) -> Dict:
+    d, f = cfg.d_model, cfg.d_ff
+    init = partial(dense_init, dtype=dtype, generator=generator, device=device)
+    p = {
+        "wu": init((d, f)),
+        "wd": init((f, d)),
+        "norm_gamma": ones_table(cfg.elastic.num_subnets, d, device),
+    }
+    if cfg.ffn_act == "swiglu":
+        p["wg"] = init((d, f))
+    if cfg.norm == "layernorm":
+        p["norm_beta"] = torch.zeros((cfg.elastic.num_subnets, d),
+                                     dtype=torch.float32, device=device)
+    return p
+
+
+def mlp_block(p, cfg: ArchConfig, x, ctrl, *, slice_mode: str = "mask"):
+    """Pre-norm SwiGLU/GELU FFN with elastic d_ff. x: (..., d) -> (..., d)."""
+    ops.check_slice_mode(slice_mode)
+    h = ops.subnet_norm(x, p["norm_gamma"], ctrl["subnet_id"],
+                        beta_table=p.get("norm_beta"), eps=cfg.norm_eps,
+                        kind=cfg.norm)
+    if cfg.ffn_act == "swiglu":
+        a = F.silu(h @ p["wg"]) * (h @ p["wu"])
+    else:
+        a = F.gelu(h @ p["wu"], approximate="tanh")   # jax.nn.gelu default
+    # WeightSlice(mask): zeroing hidden channels beyond the active width
+    # makes the down-proj rows for those channels inert.
+    a = ops.slice_mask(a, ctrl["ffn_width"])
+    y = a @ p["wd"]
+    return x + y.to(x.dtype)

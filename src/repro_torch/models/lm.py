@@ -1,0 +1,172 @@
+"""LM wrapper: embeddings, final norm, head, and the step functions that the
+executor, tests and examples share (port of ``repro/models/lm.py`` for
+token-frontend, rotary-position LMs).
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
+the step functions run wherever the parameters live. :func:`from_jax_params`
+turns the numpy leaves of ``repro.models.lm.init_model`` into this tree
+with the same keys and shapes, through numpy only.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import compat
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core import operators as ops
+from repro_torch.models import backbone as bb
+from repro_torch.models.common import dense_init, dtype_of, ones_table
+
+
+def _check_frontend(cfg: ArchConfig) -> None:
+    if cfg.frontend != "token" or cfg.pos_embed != "rope":
+        raise NotImplementedError(
+            f"{cfg.name}: frontend={cfg.frontend!r}, pos_embed="
+            f"{cfg.pos_embed!r} come with a later slice of the port")
+
+
+def init_model(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
+               device=None, dtype=None) -> Dict:
+    """Random supernet parameters on ``device`` (default: the GPU) drawn
+    from ``generator`` (default: seed 0 on that device)."""
+    _check_frontend(cfg)
+    dev = compat.resolve_device(device)
+    dtype = dtype or dtype_of(cfg)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    params = {
+        "embed": dense_init((cfg.vocab_size, cfg.d_model), dtype, generator,
+                            dev, scale=1.0),
+        "backbone": bb.init_backbone(cfg, dtype, generator, dev),
+        "final_gamma": ones_table(cfg.elastic.num_subnets, cfg.d_model, dev),
+    }
+    if not cfg.tie_embeddings:
+        params["head"] = dense_init((cfg.d_model, cfg.vocab_size), dtype,
+                                    generator, dev)
+    return params
+
+
+def _to_torch(a, device) -> torch.Tensor:
+    arr = np.asarray(a)
+    if arr.dtype.name == "bfloat16":      # ml_dtypes bf16 from a JAX tree
+        return torch.from_numpy(np.array(arr, copy=True).view(np.uint16)
+                                ).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(arr, copy=True)).to(device)
+
+
+def from_jax_params(numpy_tree, device=None):
+    """The port's parameter tree from a JAX one (``lm.init_model``), given
+    as nested dicts/lists of numpy (or numpy-convertible) leaves."""
+    dev = compat.resolve_device(device)
+
+    def conv(t):
+        if isinstance(t, dict):
+            return {k: conv(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return [conv(v) for v in t]
+        return _to_torch(t, dev)
+
+    return conv(numpy_tree)
+
+
+def _device(params) -> torch.device:
+    return params["embed"].device
+
+
+def _tokens(tokens, device) -> torch.Tensor:
+    if not isinstance(tokens, torch.Tensor):
+        tokens = torch.as_tensor(np.asarray(tokens))
+    return tokens.to(device).long()
+
+
+def head_logits(params, cfg: ArchConfig, x, ctrl):
+    """Final SubnetNorm and the (tied) head. x: (..., d) -> (..., vocab)."""
+    ctrl = ops.device_control(ctrl, x.device)
+    h = ops.subnet_norm(x, params["final_gamma"], ctrl["subnet_id"],
+                        eps=cfg.norm_eps, kind=cfg.norm)
+    w = params.get("head")
+    if w is None:
+        w = params["embed"].T
+    return h @ w
+
+
+def default_positions(cfg: ArchConfig, batch: int, seq: int, device):
+    if cfg.mrope_sections:
+        raise NotImplementedError("M-RoPE positions come with a later slice")
+    return torch.arange(seq, dtype=torch.int32, device=device
+                        ).expand(batch, seq)
+
+
+def hidden_states(params, cfg: ArchConfig, batch: Dict[str, Any], ctrl, *,
+                  slice_mode="mask", attn_impl=None):
+    """Backbone output (B, S, d) for ``batch["tokens"]`` (B, S)."""
+    _check_frontend(cfg)
+    dev = _device(params)
+    ctrl = ops.device_control(ctrl, dev)
+    tokens = _tokens(batch["tokens"], dev)
+    x = params["embed"][tokens]
+    B, S = tokens.shape
+    positions = batch.get("positions")
+    positions = (default_positions(cfg, B, S, dev) if positions is None
+                 else torch.as_tensor(positions, device=dev))
+    return bb.backbone_forward(params["backbone"], cfg, x, ctrl, positions,
+                               slice_mode=slice_mode, attn_impl=attn_impl)
+
+
+def forward(params, cfg: ArchConfig, batch, ctrl, *, slice_mode="mask",
+            attn_impl=None):
+    """Logits (B, S, vocab) for ``batch["tokens"]`` (B, S)."""
+    x = hidden_states(params, cfg, batch, ctrl, slice_mode=slice_mode,
+                      attn_impl=attn_impl)
+    return head_logits(params, cfg, x, ctrl)
+
+
+def prefill(params, cfg: ArchConfig, batch, ctrl, *, slice_mode="mask"):
+    """Serving prefill: logits for the final position only (B, 1, vocab)."""
+    x = hidden_states(params, cfg, batch, ctrl, slice_mode=slice_mode)
+    return head_logits(params, cfg, x[:, -1:], ctrl)
+
+
+def decode_step(params, cfg: ArchConfig, tokens, ctrl, cache, index, *,
+                slice_mode="mask"):
+    """tokens: (B, 1); index: int or 0-d int32 device tensor. Returns
+    (logits (B, 1, vocab), cache), the cache updated in place."""
+    _check_frontend(cfg)
+    dev = _device(params)
+    ctrl = ops.device_control(ctrl, dev)
+    if not isinstance(index, torch.Tensor):
+        index = torch.full((), int(index), dtype=torch.int32, device=dev)
+    x = params["embed"][_tokens(tokens, dev)]
+    x, cache = bb.backbone_decode(params["backbone"], cfg, x, ctrl, cache,
+                                  index, slice_mode=slice_mode)
+    return head_logits(params, cfg, x, ctrl), cache
+
+
+def init_cache(cfg: ArchConfig, batch: int, seq_len: int, dtype=None,
+               device=None):
+    dev = compat.resolve_device(device)
+    dt = getattr(torch, dtype) if isinstance(dtype, str) else dtype
+    return bb.init_cache(cfg, batch, seq_len, dt or dtype_of(cfg), dev)
+
+
+def generate(params, cfg: ArchConfig, prompt, ctrl, max_new: int,
+             seq_cap: int = 256):
+    """Greedy decode; the prompt is teacher-forced through the decode path
+    (as the JAX version does). Returns (B, P + max_new) int64 tokens."""
+    dev = _device(params)
+    ctrl = ops.device_control(ctrl, dev)
+    prompt = _tokens(prompt, dev)
+    B, P = prompt.shape
+    cache = init_cache(cfg, B, seq_cap, dtype=params["embed"].dtype,
+                       device=dev)
+    tok = prompt[:, :1]
+    out = [tok]
+    for i in range(P + max_new - 1):
+        logits, cache = decode_step(params, cfg, tok, ctrl, cache, i)
+        nxt = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        tok = prompt[:, i + 1: i + 2] if i + 1 < P else nxt
+        out.append(tok)
+    return torch.cat(out, dim=1)

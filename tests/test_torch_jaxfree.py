@@ -1,0 +1,59 @@
+"""The port imports neither JAX nor the JAX package: every module of
+``repro_torch`` and ``chip_smoke.py`` import in a fresh interpreter whose
+meta-path finder refuses ``jax``, ``jaxlib``, ``repro`` and their
+submodules (exact names, so ``repro_torch`` itself passes)."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+BLOCKED = ("jax", "jaxlib", "repro")
+
+_CHILD = r"""
+import importlib, importlib.util, pkgutil, sys
+
+BLOCKED = {blocked!r}
+
+class Blocker:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ModuleNotFoundError(f"blocked import of {{name}}")
+        return None
+
+sys.meta_path.insert(0, Blocker())
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+assert not leaked, leaked
+print(len(names))
+"""
+
+
+def test_port_imports_without_jax_or_repro():
+    proc = subprocess.run(
+        [sys.executable, "-c", _CHILD.format(blocked=BLOCKED)],
+        cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+        capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 25
+
+
+def test_no_source_names_jax_or_repro():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                roots = [a.name.split(".")[0] for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                roots = [node.module.split(".")[0]]
+            else:
+                continue
+            assert not set(roots) & set(BLOCKED), (path, roots)

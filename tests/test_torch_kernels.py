@@ -1,0 +1,253 @@
+"""Kernel parity for the PyTorch port: each plain version (the ``torch``
+tier that CPU tensors take) against the JAX Pallas kernel run in interpret
+mode and against the JAX dense oracle, on the sweep shapes of
+tests/test_kernels.py, and the device-decided dispatch rules. The
+hand-written kernels themselves are checked on the card by
+tests/test_torch_kernels_cuda.py.
+
+Inputs are made with numpy from a seed and handed to both frameworks.
+Tolerances are those of tests/test_kernels.py: 2e-3 in fp32, 2e-2 in bf16.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch import compat
+from repro_torch.kernels import decode_attention as da
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels import subnet_rmsnorm as rn
+from repro_torch.kernels.dispatch import DISPATCHER
+
+DTYPES = ["float32", "bfloat16"]
+
+
+def _tol(dtype):
+    return dict(rtol=2e-2, atol=2e-2) if dtype == "bfloat16" \
+        else dict(rtol=2e-3, atol=2e-3)
+
+
+def _pair(rng, shape, dtype):
+    """The same values as a JAX array and a CPU torch tensor."""
+    a = rng.standard_normal(shape).astype(np.float32)
+    return (jnp.asarray(a).astype(getattr(jnp, dtype)),
+            torch.from_numpy(a).to(getattr(torch, dtype)))
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+def _close(got, want, dtype):
+    np.testing.assert_allclose(_np(got), _np(want), **_tol(dtype))
+
+
+# --------------------------------------------------------------------------
+# plain versions against the JAX kernels (interpret) and dense oracles
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,d", [
+    (1, 4, 2, 64, 64, 32),
+    (2, 8, 8, 100, 100, 64),
+    (1, 4, 1, 32, 128, 32),
+])
+def test_flash_attention_plain_matches_jax(B, Hq, Hkv, Sq, Sk, d, dtype):
+    rng = np.random.default_rng(0)
+    jq, tq = _pair(rng, (B, Hq, Sq, d), dtype)
+    jk, tk = _pair(rng, (B, Hkv, Sk, d), dtype)
+    jv, tv = _pair(rng, (B, Hkv, Sk, d), dtype)
+    for window in (0, 16):
+        for kv_len in (None, Sk // 2):
+            want_d = jref.flash_attention_dense_ref(
+                jq, jk, jv, causal=True, window=window, kv_len=kv_len)
+            # kv_len as device data, the way a traced length reaches it
+            t_len = (None if kv_len is None
+                     else torch.tensor(kv_len, dtype=torch.int32))
+            got = ops.flash_attention(tq, tk, tv, causal=True, window=window,
+                                      kv_len=t_len, q_block=32, kv_block=32)
+            _close(got, want_d, dtype)
+            if dtype == "float32" and (window == 0) == (kv_len is None):
+                # the interpreted Pallas kernel compiles per dtype and
+                # static (window, kv_len): hold the plain version against
+                # it in fp32 on the two corner cases, against the oracle
+                # on all eight
+                want_k = jops.flash_attention(jq, jk, jv, causal=True,
+                                              window=window, kv_len=kv_len,
+                                              q_block=32, kv_block=32,
+                                              tier="interpret")
+                _close(got, want_k, dtype)
+            dense = ref.flash_attention_dense_ref(
+                tq, tk, tv, causal=True, window=window, kv_len=kv_len)
+            _close(dense, want_d, dtype)
+
+
+def test_flash_attention_q_offset_and_scale_take_plain_path():
+    """ops.py:173 rule: q_offset / scale calls take the plain path; the
+    offset shifts the causal frontier like the JAX blockwise path."""
+    from repro.models.attention import flash_attention as jflash
+    rng = np.random.default_rng(1)
+    jq, tq = _pair(rng, (1, 4, 16, 32), "float32")
+    jk, tk = _pair(rng, (1, 2, 48, 32), "float32")
+    jv, tv = _pair(rng, (1, 2, 48, 32), "float32")
+    want = jflash(jq, jk, jv, causal=True, q_offset=32, scale=0.1,
+                  q_block=8, kv_block=16)
+    got = ops.model_flash_attention(tq, tk, tv, causal=True, q_offset=32,
+                                    scale=0.1, q_block=8, kv_block=16)
+    _close(got, want, "float32")
+
+
+@pytest.mark.parametrize("kwargs", [dict(q_offset=1), dict(scale=0.1)])
+def test_flash_attention_q_offset_and_scale_off_cpu_raise(kwargs):
+    """Off the CPU, q_offset / scale never reach the plain version: the
+    device alone decides, and the kernel takes neither argument."""
+    q = torch.empty((1, 4, 16, 128), dtype=torch.bfloat16, device="meta")
+    with pytest.raises(NotImplementedError, match="q_offset / scale"):
+        ops.model_flash_attention(q, q[:, :2], q[:, :2], **kwargs)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,Hq,Hkv,Smax,d", [(2, 4, 2, 128, 32),
+                                             (1, 8, 1, 96, 64)])
+def test_decode_attention_plain_matches_jax(B, Hq, Hkv, Smax, d, dtype):
+    rng = np.random.default_rng(2)
+    jq, tq = _pair(rng, (B, Hq, 1, d), dtype)
+    jk, tk = _pair(rng, (B, Hkv, Smax, d), dtype)
+    jv, tv = _pair(rng, (B, Hkv, Smax, d), dtype)
+    for idx in (0, 5, Smax - 1):
+        for window in (0, 16):
+            want_d = jref.decode_attention_dense_ref(jq, jk, jv, idx,
+                                                     window=window)
+            t_idx = torch.tensor(idx, dtype=torch.int32)
+            got = ops.decode_attention(tq, tk, tv, t_idx, window=window,
+                                       kv_block=32)
+            _close(got, want_d, dtype)
+            if dtype == "float32":
+                # the index is traced: one interpreted kernel per window
+                want_k = jops.decode_attention(jq, jk, jv, jnp.int32(idx),
+                                               window=window, kv_block=32,
+                                               tier="interpret")
+                _close(got, want_k, dtype)
+            _close(ref.decode_attention_dense_ref(tq, tk, tv, t_idx,
+                                                  window=window),
+                   want_d, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("M,d,S", [(64, 128, 4), (100, 256, 9), (7, 512, 2)])
+def test_subnet_rmsnorm_plain_matches_jax(M, d, S, dtype):
+    rng = np.random.default_rng(3)
+    jx, tx = _pair(rng, (M, d), dtype)
+    jg, tg = _pair(rng, (S, d), "float32")
+    for sid in (0, S - 1):
+        want_k = jops.subnet_rmsnorm(jx, jg, jnp.int32(sid), tier="interpret")
+        want_d = jref.subnet_rmsnorm_ref(jx, jg, sid)
+        got = ops.subnet_rmsnorm(tx, tg, torch.tensor(sid, dtype=torch.int32))
+        _close(got, want_k, dtype)
+        _close(got, want_d, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("M,K,N", [(64, 256, 384), (8, 128, 128)])
+def test_sliced_matmul_plain_matches_jax(M, K, N, dtype):
+    rng = np.random.default_rng(4)
+    jx, tx = _pair(rng, (M, K), dtype)
+    jw, tw = _pair(rng, (K, N), dtype)
+    for ai, ao in ((K, N), (128, 128), (K // 2, N)):
+        want_k = jops.sliced_matmul(jx, jw, jnp.int32(ai), jnp.int32(ao),
+                                    tier="interpret")
+        want_d = jref.sliced_matmul_ref(jx, jw, ai, ao)
+        got = ops.sliced_matmul(tx, tw, torch.tensor(ai), torch.tensor(ao))
+        _close(got, want_k, dtype)
+        _close(got, want_d, dtype)
+
+
+# --------------------------------------------------------------------------
+# device-decided dispatch: no fallback in either direction
+# --------------------------------------------------------------------------
+
+
+def test_cpu_tensor_takes_the_torch_tier():
+    for name in ("flash_attention", "decode_attention", "subnet_rmsnorm",
+                 "sliced_matmul"):
+        tier, _ = DISPATCHER.resolve(name, torch.device("cpu"))
+        assert tier == "torch"
+
+
+def test_cuda_tensor_forced_to_torch_tier_raises():
+    with pytest.raises(RuntimeError, match="takes the 'cuda' tier"):
+        DISPATCHER.resolve("flash_attention", torch.device("cuda"),
+                           tier="torch")
+
+
+def test_cpu_tensor_forced_to_cuda_tier_raises():
+    x = torch.ones((4, 8))
+    g = torch.ones((2, 8))
+    with pytest.raises(RuntimeError, match="takes the 'torch' tier"):
+        ops.subnet_rmsnorm(x, g, torch.tensor(0, dtype=torch.int32),
+                           tier="cuda")
+
+
+def test_unported_kernel_raises_on_cuda():
+    with pytest.raises(KeyError, match="no 'cuda' implementation"):
+        DISPATCHER.resolve("sliced_matmul", torch.device("cuda"))
+
+
+def test_pinned_tier_is_checked(monkeypatch):
+    monkeypatch.setenv("REPRO_TORCH_KERNEL_TIER", "bogus")
+    with pytest.raises(ValueError):
+        compat.explicit_kernel_tier()
+    monkeypatch.setenv("REPRO_TORCH_KERNEL_TIER", "torch")
+    assert compat.explicit_kernel_tier() == "torch"
+    with pytest.raises(RuntimeError):
+        DISPATCHER.resolve("flash_attention", torch.device("cuda"))
+    monkeypatch.delenv("REPRO_TORCH_KERNEL_TIER")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="unavailable"):
+            compat.set_kernel_tier("cuda")
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            compat.default_device()
+    assert compat.set_kernel_tier("torch") == "torch"
+    compat.reset_kernel_tier()
+    assert compat.explicit_kernel_tier() is None
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    q = torch.zeros((1, 2, 4, 128), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="CUDA"):
+        da.decode_attention(q[:, :, :1], q, q, 0)
+    with pytest.raises(ValueError, match="CUDA"):
+        rn.subnet_rmsnorm(q, torch.ones((1, 128)),
+                          torch.tensor([0], dtype=torch.int32))
+
+
+def test_build_counter_reads_triton_builds_at_its_edges(monkeypatch):
+    """The Triton kernel's compiled variants are counted by BuildCounter at
+    the block's edges, with nvcc builds, and never by the launch path."""
+    assert rn._compiled_variants in compat._build_sources
+    jit_builds = [0]
+    monkeypatch.setattr(compat, "_build_sources", [lambda: jit_builds[0]])
+    with compat.BuildCounter() as bc:
+        jit_builds[0] += 2
+        compat.note_build(1)
+    assert bc.count == 3
+    with compat.BuildCounter() as bc:
+        pass
+    assert bc.count == 0
+
+
+def test_decode_split_plan_covers_the_cache():
+    for sms in (114, 132):
+        for bkv in (1, 2, 16, 128, 1000):
+            for smax in (16, 64, 96, 256, 4096):
+                n, chunk = da.split_plan(bkv, smax, sms)
+                assert n >= 1 and chunk >= 1
+                assert n * chunk >= smax > (n - 1) * chunk

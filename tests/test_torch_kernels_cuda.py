@@ -1,0 +1,157 @@
+"""The hand-written kernels of the PyTorch port against their plain
+versions, on the card, at main-path shapes in bf16 (tolerance 2e-2, the
+bf16 tolerance of tests/test_kernels.py). Every test skips without a CUDA
+device. This file imports neither JAX nor the JAX package, so it runs on a
+GPU machine without them:
+
+    PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_kernels_cuda.py
+"""
+import pytest
+import torch
+
+from repro_torch.kernels import decode_attention as da
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import subnet_rmsnorm as rn
+
+TOL = dict(rtol=2e-2, atol=2e-2)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel runs only on the card")
+    return torch.device("cuda")
+
+
+# --------------------------------------------------------------------------
+# on the card: each kernel against its plain version at main-path shapes
+# --------------------------------------------------------------------------
+
+
+def _randn(gen, *shape, dev, dtype=torch.bfloat16):
+    return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+
+def test_flash_attention_kernel_matches_plain(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    for S, window, kv_len in ((16, 0, None), (256, 0, None), (200, 64, 150)):
+        q = _randn(gen, 2, 12, S, 128, dev=cuda)
+        k = _randn(gen, 2, 2, S, 128, dev=cuda)
+        v = _randn(gen, 2, 2, S, 128, dev=cuda)
+        kvl = None if kv_len is None else torch.tensor(
+            kv_len, dtype=torch.int32, device=cuda)
+        got = fa.flash_attention(q, k, v, window=window, kv_len=kvl)
+        want = fa.flash_attention_plain(q, k, v, window=window, kv_len=kvl)
+        torch.testing.assert_close(got.float(), want.float(),
+                                   **TOL)
+
+
+def test_flash_attention_q_offset_on_cuda_raises(cuda):
+    from repro_torch.kernels import ops
+    q = torch.zeros((1, 12, 16, 128), dtype=torch.bfloat16, device=cuda)
+    k = torch.zeros((1, 2, 16, 128), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(NotImplementedError, match="q_offset / scale"):
+        ops.model_flash_attention(q, k, k, q_offset=1)
+
+
+def test_decode_attention_kernel_matches_plain(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    q = _randn(gen, 2, 12, 1, 128, dev=cuda)
+    kc = _randn(gen, 2, 2, 256, 128, dev=cuda)
+    vc = _randn(gen, 2, 2, 256, 128, dev=cuda)
+    for index in (0, 100, 255):
+        idx = torch.tensor(index, dtype=torch.int32, device=cuda)
+        for window in (0, 64):
+            got = da.decode_attention(q, kc, vc, idx, window=window)
+            want = da.decode_attention_plain(q, kc, vc, idx, window=window)
+            torch.testing.assert_close(got.float(), want.float(),
+                                       **TOL)
+
+
+def test_subnet_rmsnorm_kernel_matches_plain(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    gamma = 1 + 0.1 * _randn(gen, 18, 1536, dev=cuda, dtype=torch.float32)
+    for rows in (128, 8):
+        x = _randn(gen, rows, 1536, dev=cuda)
+        for sid in (0, 17):
+            s = torch.tensor(sid, dtype=torch.int32, device=cuda)
+            torch.testing.assert_close(
+                rn.subnet_rmsnorm(x, gamma, s).float(),
+                rn.subnet_rmsnorm_plain(x, gamma, s).float(),
+                **TOL)
+
+
+# --------------------------------------------------------------------------
+# the model and the executor on the card, against the plain path on the CPU
+# --------------------------------------------------------------------------
+
+
+def _small_cfg():
+    from repro_torch.configs.base import ArchConfig, ElasticSpec, Stage
+    return ArchConfig(
+        name="small-h128", family="dense",
+        stages=(Stage(("attn", "mlp"), repeat=3),), d_model=256, n_heads=4,
+        n_kv_heads=2, d_ff=512, vocab_size=1000, head_dim=128, qkv_bias=True,
+        dtype="bfloat16",
+        elastic=ElasticSpec(depth_fracs=(1 / 3, 2 / 3, 1.0),
+                            ffn_fracs=(0.5, 1.0), head_fracs=(0.5, 1.0)))
+
+
+def _close_rel(got, want):
+    scale = want.abs().max().item()
+    torch.testing.assert_close(got.float().cpu(), want, rtol=2e-2,
+                               atol=2e-2 * scale)
+
+
+def test_lm_on_card_matches_cpu_plain_path_for_every_subnet(cuda):
+    import numpy as np
+    from repro_torch.core import subnet as sn
+    from repro_torch.models import lm
+    cfg = _small_cfg()
+    gpu = lm.init_model(cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    cpu = lm.from_jax_params(_to_numpy(gpu), device="cpu")
+    cfg32 = cfg.replace(dtype="float32")
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 24))
+    with torch.no_grad():
+        for sub in sn.enumerate_space(cfg):
+            ctrl = sn.make_control(cfg, sub)
+            _close_rel(lm.forward(gpu, cfg, {"tokens": toks}, ctrl),
+                       lm.forward(cpu, cfg32, {"tokens": toks}, ctrl))
+        cg = lm.init_cache(cfg, 2, 32, device=cuda)
+        cc = lm.init_cache(cfg32, 2, 32, device="cpu")
+        for i in range(6):
+            lg, cg = lm.decode_step(gpu, cfg, toks[:, i:i + 1], ctrl, cg, i)
+            lc, cc = lm.decode_step(cpu, cfg32, toks[:, i:i + 1], ctrl, cc, i)
+            _close_rel(lg, lc)
+
+
+def _to_numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_numpy(v) for v in tree]
+    return tree.float().cpu().numpy()
+
+
+def test_executor_on_card_builds_nothing_after_warmup(cuda):
+    import numpy as np
+    from repro_torch import compat
+    from repro_torch.serving.executor import ExecutorConfig, build_executor
+    ex = build_executor(_small_cfg(), seed=0, device=cuda,
+                        exec_cfg=ExecutorConfig(batch_buckets=(1, 2, 4),
+                                                seq_buckets=(16,)))
+    ex.warmup(batches=(1, 2, 4), seqs=(16,), decode=True)
+    compat.reset_launch_counts()
+    with compat.BuildCounter() as bc:
+        for idx in range(ex.n_subnets):
+            out = ex.prefill(idx, np.ones((3, 11), np.int32))
+            assert out.shape == (3, 1000) and np.isfinite(out).all()
+        cache = ex.init_cache(3, 16)
+        for i in range(4):
+            logits, cache = ex.decode_step(ex.n_subnets - 1,
+                                           np.ones((3, 1), np.int32), cache, i)
+            assert np.isfinite(logits).all()
+    assert bc.count == 0
+    launches = compat.launch_counts()
+    for name in ("flash_attention", "subnet_rmsnorm", "decode_attention"):
+        assert launches.get(name, 0) > 0, name

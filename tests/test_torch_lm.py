@@ -1,0 +1,150 @@
+"""The PyTorch port's dense LM against repro.models.lm, with the weights of
+``lm.init_model(PRNGKey(0), cfg)`` copied across through numpy
+(``repro_torch.models.lm.from_jax_params``): forward logits for every
+subnet, a 16-token greedy ``generate`` and 8 ``decode_step`` logits, for
+``tiny_dense`` and ``qwen2-1.5b``'s reduced config, plus a sliding-window
+and a layernorm / partial-rotary variant of ``tiny_dense`` (fp32, 2e-3)."""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from conftest import tiny_dense
+from repro.configs import get_config
+from repro.core import subnet as jsn
+from repro.models import lm as jlm
+from repro_torch.configs import base as pbase
+from repro_torch.core import subnet as tsn
+from repro_torch.models import lm as tlm
+
+TOL = dict(rtol=2e-3, atol=2e-3)
+CFGS = {"tiny_dense": tiny_dense,
+        "qwen2-1.5b-reduced": lambda: get_config("qwen2-1.5b").reduced(),
+        # the rolling-buffer decode cache and the window mask
+        "tiny_dense-window8": lambda: tiny_dense(sliding_window=8),
+        # layernorm with its beta table, partial rotary, QKV bias
+        "tiny_dense-layernorm-rot25": lambda: tiny_dense(
+            norm="layernorm", rotary_pct=0.25, qkv_bias=True)}
+
+
+def port_cfg(jcfg):
+    """The port's ArchConfig with the same fields as a JAX one."""
+    kw = {f.name: getattr(jcfg, f.name) for f in dataclasses.fields(jcfg)}
+    kw["stages"] = tuple(pbase.Stage(s.pattern, s.repeat) for s in jcfg.stages)
+    kw["elastic"] = pbase.ElasticSpec(**dataclasses.asdict(jcfg.elastic))
+    return pbase.ArchConfig(**kw)
+
+
+def port_params(jparams):
+    return tlm.from_jax_params(jax.tree.map(np.asarray, jparams), device="cpu")
+
+
+@pytest.fixture(scope="module", params=list(CFGS))
+def model(request):
+    jcfg = CFGS[request.param]()
+    jparams = jlm.init_model(jax.random.PRNGKey(0), jcfg)
+    return jcfg, port_cfg(jcfg), jparams, port_params(jparams)
+
+
+def _subnets(jcfg, tcfg):
+    js, ts = jsn.enumerate_space(jcfg), tsn.enumerate_space(tcfg)
+    assert [s.key() for s in js] == [s.key() for s in ts]
+    return list(zip(js, ts))
+
+
+def test_from_jax_params_keeps_keys_and_shapes(model):
+    _, _, jparams, tparams = model
+    jl = jax.tree_util.tree_leaves_with_path(jparams)
+    flat = {}
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                walk(v, path + (k,))
+        elif isinstance(t, list):
+            for i, v in enumerate(t):
+                walk(v, path + (i,))
+        else:
+            flat[path] = t
+
+    walk(tparams, ())
+    assert len(flat) == len(jl)
+    for path, leaf in jl:
+        key = tuple(getattr(p, "key", getattr(p, "idx", None)) for p in path)
+        t = flat[key]
+        assert tuple(t.shape) == leaf.shape
+        np.testing.assert_array_equal(t.numpy(), np.asarray(leaf))
+
+
+def test_from_jax_params_bf16_leaves():
+    a = jnp.asarray(np.linspace(-3, 3, 12, dtype=np.float32)).astype(jnp.bfloat16)
+    t = tlm.from_jax_params({"w": np.asarray(a)}, device="cpu")["w"]
+    assert t.dtype == torch.bfloat16
+    np.testing.assert_array_equal(t.float().numpy(),
+                                  np.asarray(a.astype(jnp.float32)))
+
+
+def test_forward_matches_for_every_subnet(model):
+    jcfg, tcfg, jparams, tparams = model
+    toks = np.random.default_rng(0).integers(
+        0, jcfg.vocab_size, (2, 16)).astype(np.int32)
+    fwd = jax.jit(lambda p, t, c: jlm.forward(p, jcfg, {"tokens": t}, c))
+    for jsub, tsub in _subnets(jcfg, tcfg):
+        want = fwd(jparams, toks, jsn.make_control(jcfg, jsub))
+        got = tlm.forward(tparams, tcfg, {"tokens": toks},
+                          tsn.make_control(tcfg, tsub))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL,
+                                   err_msg=f"subnet {tsub}")
+
+
+def test_generate_16_tokens_matches(model):
+    jcfg, tcfg, jparams, tparams = model
+    prompt = np.random.default_rng(1).integers(
+        0, jcfg.vocab_size, (2, 4)).astype(np.int32)
+    for jsub, tsub in (_subnets(jcfg, tcfg)[0], _subnets(jcfg, tcfg)[-1]):
+        want = jlm.generate(jparams, jcfg, jnp.asarray(prompt),
+                            jsn.make_control(jcfg, jsub), max_new=16,
+                            seq_cap=32)
+        got = tlm.generate(tparams, tcfg, prompt,
+                           tsn.make_control(tcfg, tsub), max_new=16,
+                           seq_cap=32)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_decode_step_logits_match(model):
+    jcfg, tcfg, jparams, tparams = model
+    toks = np.random.default_rng(2).integers(
+        0, jcfg.vocab_size, (2, 8)).astype(np.int32)
+    step = jlm.cached_decode_step(jcfg)
+    jsub, tsub = _subnets(jcfg, tcfg)[-1]
+    jctrl, tctrl = jsn.make_control(jcfg, jsub), tsn.make_control(tcfg, tsub)
+    jcache = jlm.init_cache(jcfg, 2, 16)
+    tcache = tlm.init_cache(tcfg, 2, 16, device="cpu")
+    for i in range(8):
+        want, jcache = step(jparams, jnp.asarray(toks[:, i:i + 1]), jctrl,
+                            jcache, jnp.int32(i))
+        got, tcache = tlm.decode_step(tparams, tcfg, toks[:, i:i + 1], tctrl,
+                                      tcache, i)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL,
+                                   err_msg=f"step {i}")
+
+
+def test_prefill_is_last_position_of_forward(model):
+    _, tcfg, _, tparams = model
+    toks = np.random.default_rng(3).integers(
+        0, tcfg.vocab_size, (2, 9)).astype(np.int32)
+    ctrl = tsn.make_control(tcfg, tsn.max_subnet(tcfg))
+    full = tlm.forward(tparams, tcfg, {"tokens": toks}, ctrl)
+    last = tlm.prefill(tparams, tcfg, {"tokens": toks}, ctrl)
+    np.testing.assert_allclose(last.numpy(), full[:, -1:].numpy(),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_unported_families_raise():
+    cfg = port_cfg(tiny_dense()).replace(
+        stages=(pbase.Stage(("mamba",), repeat=1),))
+    with pytest.raises(NotImplementedError, match="later slice"):
+        tlm.init_model(cfg, device="cpu")

@@ -1,0 +1,95 @@
+"""SubNetAct operators of the PyTorch port against repro.core.operators on
+the same numpy inputs (fp32, tolerance 2e-3 as in tests/test_kernels.py)."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import operators as jops
+from repro_torch.core import operators as ops
+
+TOL = dict(rtol=2e-3, atol=2e-3)
+
+
+def _x(shape, seed=0):
+    return np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+
+
+@pytest.mark.parametrize("kind,beta", [("rmsnorm", False),
+                                       ("layernorm", False),
+                                       ("layernorm", True)])
+@pytest.mark.parametrize("sid", [0, 3])
+def test_subnet_norm_matches_jax(kind, beta, sid):
+    x, gamma = _x((2, 5, 64)), 1 + 0.1 * _x((4, 64), 1)
+    bt = 0.1 * _x((4, 64), 2) if beta else None
+    want = jops.subnet_norm(jnp.asarray(x), jnp.asarray(gamma), jnp.int32(sid),
+                            beta_table=None if bt is None else jnp.asarray(bt),
+                            kind=kind)
+    got = ops.subnet_norm(torch.from_numpy(x), torch.from_numpy(gamma),
+                          torch.tensor(sid, dtype=torch.int32),
+                          beta_table=None if bt is None else torch.from_numpy(bt),
+                          kind=kind)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("active,axis", [(0, -1), (5, -1), (64, -1), (3, 1)])
+def test_slice_mask_matches_jax(active, axis):
+    x = _x((2, 7, 64))
+    want = jops.slice_mask(jnp.asarray(x), jnp.int32(active), axis=axis)
+    got = ops.slice_mask(torch.from_numpy(x),
+                         torch.tensor(active, dtype=torch.int32), axis=axis)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("ai,ao", [(128, 96), (64, 96), (40, 17), (None, 50),
+                                   (70, None)])
+def test_sliced_matmul_mask_mode_matches_jax(ai, ao):
+    x, w = _x((3, 4, 128)), _x((128, 96), 1)
+    want = jops.sliced_matmul(jnp.asarray(x), jnp.asarray(w),
+                              None if ai is None else jnp.int32(ai),
+                              None if ao is None else jnp.int32(ao),
+                              mode="mask")
+    got = ops.sliced_matmul(torch.from_numpy(x), torch.from_numpy(w),
+                            None if ai is None else torch.tensor(ai),
+                            None if ao is None else torch.tensor(ao))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_sliced_matmul_switch_mode_is_not_ported():
+    with pytest.raises(NotImplementedError):
+        ops.sliced_matmul(torch.ones((2, 8)), torch.ones((8, 4)), 8, 4,
+                          mode="switch")
+
+
+def test_layer_select_gates_on_host_value():
+    calls = []
+
+    def block(x):
+        calls.append(1)
+        return x + 1
+
+    x = torch.zeros(3)
+    assert torch.equal(ops.layer_select(np.bool_(False), block, x), x)
+    assert not calls
+    assert torch.equal(ops.layer_select(np.bool_(True), block, x), x + 1)
+    assert calls == [1]
+
+
+def test_device_control_splits_host_gates_from_device_values():
+    from repro_torch.configs import get_config
+    from repro_torch.core import subnet as sn
+    cfg = get_config("qwen2-1.5b").reduced()
+    ctrl = sn.make_control(cfg, sn.max_subnet(cfg))
+    dc = ops.device_control(ctrl, "cpu")
+    assert isinstance(dc["layer_gate"], np.ndarray)
+    assert dc["layer_gate"].dtype == bool
+    for k, v in ctrl.items():
+        if k != "layer_gate":
+            assert isinstance(dc[k], torch.Tensor) and dc[k].dim() == 0
+            assert dc[k].dtype == torch.int32 and int(dc[k]) == int(v)
+    # already converted: passes through unchanged
+    again = ops.device_control(dc, "cpu")
+    assert all(again[k] is dc[k] for k in dc if k != "layer_gate")
+    with pytest.raises(TypeError):
+        ops.device_control({"layer_gate": torch.ones(2, dtype=torch.bool)},
+                           "cpu")

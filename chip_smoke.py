@@ -13,19 +13,31 @@ Phases, one result line each:
    card, in bf16, at main-path shapes: max |error| (tolerance 2e-2 abs +
    2e-2 rel, the bf16 tolerance of the JAX package's kernel tests),
    kernel, plain and library (``scaled_dot_product_attention`` /
-   ``rms_norm``, timed as a yardstick only) times, and the bound: the
-   larger of bytes over the card's memory rate and FLOPs over its peak.
+   ``rms_norm`` / ``torch.matmul`` on the active block, timed as a
+   yardstick only) times, and the bound: the larger of bytes over the
+   card's memory rate and FLOPs over its peak. ``sliced_matmul`` is timed
+   over weight copies that exceed the L2 cache, as each layer finds its
+   weights cold, and its columns past ``active_out`` must be exactly 0.
 3. Serve: ``repro_torch.launch.serve`` at the full width and depth of
    qwen2-1.5b (random weights from a seeded ``torch.Generator``), SlackFit
    through the port's Router; every query must be answered, the serve
    phase must build no kernel, and every kernel must have launched.
 4. Decode: 8 greedy ``SubnetExecutor.decode_step`` steps for the smallest
    and the largest Pareto subnet; finite logits, decode kernel launched.
-5. Trace: where a warmed full-width prefill and decode step spend their
+5. Switch: WeightSlice switch mode on the same full-width weights as a
+   mask-mode executor: prefill logits (B=8, S=16) of all 18 Pareto
+   subnets against mask mode, 8 decode steps of the smallest and largest
+   subnet against mask mode, then ``launch.serve --slice-mode switch``
+   (32 queries, SlackFit): every query answered, no build, and
+   ``sliced_matmul`` launched.
+6. Trace: where a warmed full-width prefill and decode step spend their
    time (host wall clock, device kernel time from ``torch.profiler``, the
-   device's idle share, the top kernels, the launches of each kernel).
-6. Reference: the full-width model cut to 2 layers, kernels in bf16 on the
-   card against the plain fp32 path on the CPU, prefill and decode logits.
+   device's idle share, the top kernels, the launches of each kernel),
+   and a switch-mode prefill of the widest and the narrowest full-depth
+   subnet.
+7. Reference: the full-width model cut to 2 layers, kernels in bf16 on the
+   card against the plain fp32 path on the CPU, prefill and decode logits,
+   in mask and in switch mode.
 
 Then one JSON line with every kernel's numbers, and last the device line.
 Exits non-zero, with no result line, when CUDA is unavailable, the port is
@@ -33,6 +45,7 @@ missing, or any phase fails.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import subprocess
 import sys
@@ -60,6 +73,13 @@ def say(tag: str, **kw) -> None:
     print(f"[{tag}] " + json.dumps(kw, default=str), flush=True)
 
 
+def rotating(fn, operands):
+    """``fn`` called on the next operand tuple of ``operands`` each time
+    (copies that together exceed the L2 cache keep every call cold)."""
+    it = itertools.cycle(operands)
+    return lambda: fn(*next(it))
+
+
 def time_ms(torch, fn, iters: int = 50, warmup: int = 5) -> float:
     for _ in range(warmup):
         fn()
@@ -72,6 +92,26 @@ def time_ms(torch, fn, iters: int = 50, warmup: int = 5) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(torch, fn, n: int = 20):
+    """The device's own kernel time per call of ``fn``, from
+    torch.profiler (for the small kernels the CUDA-event time of
+    :func:`time_ms` is the host's launch rate)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            t = getattr(ev, "self_device_time_total", None)
+            us += ev.self_cuda_time_total if t is None else t
+    return us / n / 1e3 if us > 0 else "not measured"
 
 
 class Card:
@@ -182,7 +222,10 @@ def phase_kernels(torch, card):
         plain_ms=time_ms(torch, lambda: rn.subnet_rmsnorm_plain(x, gamma, sid)),
         library_ms=(time_ms(torch, lambda: lib(x, (d,), w_row, 1e-5))
                     if lib is not None else None),
-        bound_ms=bound, bound_by=by)
+        bound_ms=bound, bound_by=by,
+        device_ms=device_ms(torch, lambda: rn.subnet_rmsnorm(x, gamma, sid)),
+        library_device_ms=(device_ms(torch, lambda: lib(x, (d,), w_row, 1e-5))
+                           if lib is not None else None))
     say("kernel", name="subnet_rmsnorm", cases=len(errs),
         **results["subnet_rmsnorm"])
 
@@ -226,7 +269,19 @@ def phase_kernels(torch, card):
                          iters=10),
         library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
             q, kx, vx, is_causal=True)),
-        bound_ms=bound, bound_by=by)
+        bound_ms=bound, bound_by=by,
+        device_ms=device_ms(torch, lambda: fa.flash_attention(q, k, v)),
+        library_device_ms=device_ms(
+            torch, lambda: F.scaled_dot_product_attention(q, kx, vx,
+                                                          is_causal=True)))
+    # the serving prefill's S=16, where launch latency dominates
+    q, k, v = randn(B, Hq, 16, hd), randn(B, Hkv, 16, hd), randn(B, Hkv, 16, hd)
+    kx, vx = k.repeat_interleave(G, dim=1), v.repeat_interleave(G, dim=1)
+    results["flash_attention"].update(
+        s16_device_ms=device_ms(torch, lambda: fa.flash_attention(q, k, v)),
+        s16_library_device_ms=device_ms(
+            torch, lambda: F.scaled_dot_product_attention(q, kx, vx,
+                                                          is_causal=True)))
     say("kernel", name="flash_attention", **results["flash_attention"])
 
     # -- decode_attention: q (B,12,1,128), cache (B,2,256,128) -------------
@@ -257,19 +312,105 @@ def phase_kernels(torch, card):
             q, kc, vc, idx)),
         library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
             q, kcx, vcx, attn_mask=mask)),
-        bound_ms=bound, bound_by=by)
+        bound_ms=bound, bound_by=by,
+        device_ms=device_ms(torch, lambda: da.decode_attention(q, kc, vc,
+                                                               idx)),
+        library_device_ms=device_ms(
+            torch, lambda: F.scaled_dot_product_attention(
+                q, kcx, vcx, attn_mask=mask)))
     say("kernel", name="decode_attention", **results["decode_attention"])
+    results["sliced_matmul"] = _sliced_cases(torch, card, randn)
     return results
+
+
+def _sliced_cases(torch, card, randn):
+    """sliced_matmul at the switch path's shapes (qwen2-1.5b: FFN gate/up
+    (M,1536)x(1536,8960), FFN down (M,8960)x(8960,1536), wo as 2 K
+    segments of 768, M = 128 prefill rows and 8 decode rows) and at
+    awkward ones: 7 rows, a partial K tile, a partial N tile, and
+    per-group strided views. Widths are int32 tensors in device memory.
+    Returns the FFN-up case at M=128, full width (the headline)."""
+    from repro_torch.kernels import sliced_matmul as sm
+    dev = "cuda"
+    # (label, M, K, N, active_in, active_out, segments)
+    cases = []
+    for M in (128, 8):
+        cases += [(f"ffn_up M={M} ao={ao}", M, 1536, 8960, None, ao, 1)
+                  for ao in (8960, 6656, 4480)]
+        cases += [(f"ffn_down M={M} ai={ai}", M, 8960, 1536, ai, None, 1)
+                  for ai in (8960, 6656, 4480)]
+        cases += [(f"wo M={M} ai={ai}x2", M, 1536, 1536, ai, None, 2)
+                  for ai in (768, 384)]
+    cases += [("awkward M=7 ai=200 ao=100", 7, 1536, 8960, 200, 100, 1)]
+    copies = 4        # 4 x 27.5 MB of weights: more than the 50 MB L2
+    headline, errs = None, []
+    for label, M, K, N, ai, ao, nseg in cases:
+        x = randn(M, K)
+        ws = [randn(K, N) for _ in range(copies)]
+        a = None if ai is None else torch.full((), ai, dtype=torch.int32,
+                                              device=dev)
+        b = None if ao is None else torch.full((), ao, dtype=torch.int32,
+                                              device=dev)
+        got = sm.sliced_matmul(x, ws[0], a, b, segments=nseg)
+        want = sm.sliced_matmul_plain(x, ws[0], a, b, segments=nseg)
+        err = _compare(torch, f"sliced_matmul {label}", got, want)
+        if ao is not None and got[:, ao:].any():
+            fail(f"sliced_matmul {label}: nonzero columns past active_out")
+        errs.append(err)
+        kin = (K // nseg if ai is None else ai) * nseg
+        kout = N if ao is None else ao
+        bound, by = card.bound(2 * (M * kin + kin * kout + M * N),
+                               2 * M * kin * kout)
+        ops = [(x, w) for w in ws]
+        row = dict(
+            shape=[M, K, N], active_in=ai, active_out=ao, segments=nseg,
+            max_abs_err=err,
+            ms=time_ms(torch, rotating(lambda xx, ww: sm.sliced_matmul(
+                xx, ww, a, b, segments=nseg), ops)),
+            plain_ms=time_ms(torch, rotating(
+                lambda xx, ww: sm.sliced_matmul_plain(
+                    xx, ww, a, b, segments=nseg), ops), iters=10),
+            # one cuBLAS call on the active block; a segmented product has
+            # no single library call
+            library_ms=(time_ms(torch, rotating(
+                lambda xx, ww: torch.matmul(xx[:, :kin], ww[:kin, :kout]),
+                ops)) if nseg == 1 else None),
+            bound_ms=bound, bound_by=by,
+            device_ms=device_ms(torch, rotating(
+                lambda xx, ww: sm.sliced_matmul(xx, ww, a, b,
+                                                segments=nseg), ops)),
+            library_device_ms=(device_ms(torch, rotating(
+                lambda xx, ww: torch.matmul(xx[:, :kin], ww[:kin, :kout]),
+                ops)) if nseg == 1 else None))
+        say("kernel-case", name="sliced_matmul", case=label, **row)
+        if headline is None:
+            headline = row
+        del ws, ops
+    # per-group strided views: the wo of each KV group read in place
+    buf = randn(128, 1536 + 64)
+    o, wo = buf[:, 64:], randn(1536, 1536)
+    for heads, g in itertools.product((3, 6), (0, 1)):
+        act = torch.full((), heads * 128, dtype=torch.int32, device=dev)
+        og, wg = o[:, g * 768:(g + 1) * 768], wo[g * 768:(g + 1) * 768]
+        errs.append(_compare(
+            torch, f"sliced_matmul per-group views heads={heads} group={g}",
+            sm.sliced_matmul(og, wg, act, None),
+            sm.sliced_matmul_plain(og, wg, act, None)))
+    say("kernel-case", name="sliced_matmul", case="per-group strided views",
+        max_abs_err=errs[-1])
+    return dict(headline, max_abs_err=max(errs), cases=len(errs))
 
 
 # --------------------------------------------------------------------------
 # phases 3-5: the main path
 # --------------------------------------------------------------------------
 
-PATH_KERNELS = ("subnet_rmsnorm", "flash_attention", "decode_attention")
+PATH_KERNELS = ("subnet_rmsnorm", "flash_attention", "decode_attention",
+                "sliced_matmul")
 # device symbols of the port's kernels, as the profiler names them
 PORT_KERNEL_SYMBOLS = ("_rmsnorm_rows", "flash_fwd_kernel",
-                       "decode_split_kernel", "decode_combine_kernel")
+                       "decode_split_kernel", "decode_combine_kernel",
+                       "sliced_matmul_kernel")
 
 
 def phase_serve(torch):
@@ -333,32 +474,134 @@ def phase_decode(torch):
     return launches
 
 
+def phase_switch(torch):
+    """WeightSlice switch mode at full width and depth: parity with mask
+    mode over one parameter tree, decode, and the launcher serving with
+    ``--slice-mode switch``. Returns the kernel launches of the phase."""
+    import numpy as np
+    from repro_torch import compat
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.serving.executor import ExecutorConfig, SubnetExecutor
+    cfg = get_config("qwen2-1.5b")
+    params = lm.init_model(cfg, torch.Generator(device="cuda").manual_seed(4),
+                           "cuda")
+    mask = SubnetExecutor(params, cfg)
+    switch = SubnetExecutor(params, cfg,
+                            exec_cfg=ExecutorConfig(slice_mode="switch"))
+    compat.reset_launch_counts()
+    B, S, steps = 8, 16, 8
+    rng = np.random.default_rng(5)
+    toks = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+
+    def rel_err(got, want, what):
+        if got.shape != want.shape or not np.isfinite(got).all():
+            fail(f"switch {what}: bad logits {got.shape}")
+        scale = float(np.abs(want).max())
+        err = float(np.abs(got - want).max()) / scale
+        if err > 2e-2:
+            fail(f"switch {what}: off mask mode by {err} of max|logit|")
+        return err
+
+    prefill_errs = [rel_err(switch.prefill(idx, toks), mask.prefill(idx, toks),
+                            f"prefill subnet {idx}")
+                    for idx in range(switch.n_subnets)]
+    decode_errs, decode = [], {}
+    for idx in (0, switch.n_subnets - 1):
+        cs, cm = switch.init_cache(B, 32), mask.init_cache(B, 32)
+        tok = toks[:, :1]
+        t0 = time.perf_counter()
+        for i in range(steps):
+            got, cs = switch.decode_step(idx, tok, cs, i)
+            want, cm = mask.decode_step(idx, tok, cm, i)
+            decode_errs.append(rel_err(got, want, f"decode {idx} step {i}"))
+            tok = want.argmax(-1).astype(np.int32)[:, None]
+        decode[f"subnet_{idx}_ms_per_step_both_modes"] = \
+            (time.perf_counter() - t0) / steps * 1e3
+    parity_launches = compat.launch_counts()
+    n_sub = switch.n_subnets
+    del mask, switch, params
+    torch.cuda.empty_cache()
+    compat.reset_launch_counts()
+    out = serve.run(["--execute", "real", "--arch", "qwen2-1.5b",
+                     "--queries", "32", "--seq-len", "16",
+                     "--slice-mode", "switch"])
+    serve_launches = compat.launch_counts()
+    say("switch", subnets=n_sub, batch=B, seq=S,
+        decode_steps=steps, prefill_rel_err_vs_mask=prefill_errs,
+        decode_rel_err_vs_mask=decode_errs,
+        max_rel_err_vs_mask=max(prefill_errs + decode_errs),
+        tol="2e-2 of max|mask logit|", parity_launches=parity_launches,
+        slice_mode=out["slice_mode"], queries=out["queries"],
+        served=out["served"], slo_attainment=out["slo_attainment"],
+        p50_latency_ms=out["p50_latency_ms"],
+        p99_latency_ms=out["p99_latency_ms"], rate_qps=out["rate_qps"],
+        slo_ms=out["slo_ms"], lat_fast_ms=out["lat_fast_ms"],
+        lat_slow_ms=out["lat_slow_ms"], warmup=out["warmup"],
+        serve_phase_launches=out["kernel_launches"],
+        serve_phase_builds=out["serve_phase_builds"], **decode)
+    if out["slice_mode"] != "switch" or out["size"] != "full":
+        fail("switch serve did not run full-width switch mode")
+    if out["queries"] < 1 or out["served"] != out["queries"]:
+        fail(f"switch served {out['served']} of {out['queries']} queries")
+    if out["serve_phase_builds"] != 0:
+        fail(f"switch serve phase built {out['serve_phase_builds']} kernels")
+    if out["kernel_launches"].get("sliced_matmul", 0) <= 0:
+        fail("sliced_matmul never launched while serving in switch mode")
+    return {k: parity_launches.get(k, 0) + serve_launches.get(k, 0)
+            for k in set(parity_launches) | set(serve_launches)}
+
+
 def phase_trace(torch):
-    """Where a warmed full-width prefill (B=8, S=16, largest subnet) and a
-    decode step spend their time: host wall clock against device kernel
-    time from torch.profiler, and the kernel launches of each."""
+    """Where a warmed full-width prefill (B=8, S=16, largest subnet), a
+    decode step, and a switch-mode prefill of the widest and the narrowest
+    full-depth subnet spend their time: host wall clock (median of 10,
+    taken in rounds over the four) against device kernel time from
+    torch.profiler, and the kernel launches of each."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
     from repro_torch import compat
     from repro_torch.configs import get_config
     from repro_torch.serving.executor import build_executor
-    ex = build_executor(get_config("qwen2-1.5b"), seed=0, device="cuda")
+    from repro_torch.core import subnet as sn
+    from repro_torch.core.pareto import ParetoPoint
+    from repro_torch.serving.executor import ExecutorConfig, SubnetExecutor
+    cfg = get_config("qwen2-1.5b")
+    ex = build_executor(cfg, seed=0, device="cuda")
     ex.warmup(batches=(8,), seqs=(16,), decode=True)
+    # switch mode over the same weights: the widest subnet and the
+    # narrowest at full depth (FFN 0.5, heads 0.5)
+    narrow = next(s for s in sn.enumerate_space(cfg)
+                  if (s.depth_frac, s.ffn_frac, s.head_frac) == (1.0, 0.5, 0.5))
+    sw = SubnetExecutor(ex.params, cfg,
+                        points=[ParetoPoint(sub, 0.0, 0.0, 0.0)
+                                for sub in (sn.max_subnet(cfg), narrow)],
+                        exec_cfg=ExecutorConfig(slice_mode="switch"))
+    sw.warmup(batches=(8,), seqs=(16,))
     toks, idx, n = np.ones((8, 16), np.int32), ex.n_subnets - 1, 10
     cache = ex.init_cache(8, 16)
     steps = {"prefill": lambda: ex.prefill(idx, toks),
-             "decode": lambda: ex.decode_step(idx, toks[:, :1], cache, 3)}
-    report = {}
+             "decode": lambda: ex.decode_step(idx, toks[:, :1], cache, 3),
+             "switch_prefill_widest": lambda: sw.prefill(0, toks),
+             "switch_prefill_narrowest": lambda: sw.prefill(1, toks)}
+    launches, walls = {}, {kind: [] for kind in steps}
     for kind, step in steps.items():
         for _ in range(3):
             step()
         compat.reset_launch_counts()
         step()
-        launches = compat.launch_counts()
-        t0 = time.perf_counter()
-        for _ in range(n):
+        launches[kind] = compat.launch_counts()
+    # host wall in rounds over the step kinds, so a drift of the shared
+    # host does not favour the kind measured first
+    for _ in range(n):
+        for kind, step in steps.items():
+            t0 = time.perf_counter()
             step()
-        wall_ms = (time.perf_counter() - t0) / n * 1e3
+            walls[kind].append((time.perf_counter() - t0) * 1e3)
+    report = {}
+    for kind, step in steps.items():
+        wall_ms = float(np.median(walls[kind]))
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
@@ -385,14 +628,16 @@ def phase_trace(torch):
             device_idle_share=(1 - dev_ms / wall_ms) if dev_ms > 0
             else "not measured",
             device_kernels=sum(c for _, c in per_kernel.values()) / n,
-            launches=launches,
+            launches=launches[kind],
             port_kernels_ms={k: [ms, c] for k, (ms, c) in port.items()},
             top=[[name[:60], t / n / 1e3, c // n] for name, (t, c) in top])
-    say("trace", batch=8, seq=16, subnet=idx, **report)
+    say("trace", batch=8, seq=16, subnet=idx,
+        switch_subnets=[sw.points[0].sub.key(), narrow.key()], **report)
 
 
 def phase_reference(torch):
-    """Full width, 2 layers: kernels (bf16, card) vs plain (fp32, CPU)."""
+    """Full width, 2 layers: kernels (bf16, card) vs plain (fp32, CPU), in
+    mask and in switch mode."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.configs.base import Stage
@@ -417,31 +662,37 @@ def phase_reference(torch):
     rng = np.random.default_rng(3)
     toks = rng.integers(0, cfg.vocab_size, (2, 16)).astype(np.int32)
     pts = pareto_subnets(cfg)
-    worst = 0.0
+    worst = {"mask": 0.0, "switch": 0.0}
     with torch.no_grad():
-        for p in (pts[0], pts[-1]):
+        for mode, p in itertools.product(worst, (pts[0], pts[-1])):
             ctrl = sn.make_control(cfg, p.sub)
-            got = lm.forward(gpu, cfg, {"tokens": toks}, ctrl).float().cpu()
-            want = lm.forward(cpu, cfg32, {"tokens": toks}, ctrl)
+            got = lm.forward(gpu, cfg, {"tokens": toks}, ctrl,
+                             slice_mode=mode).float().cpu()
+            want = lm.forward(cpu, cfg32, {"tokens": toks}, ctrl,
+                              slice_mode=mode)
             scale = want.abs().max().item()
             err = (got - want).abs().max().item() / scale
-            worst = max(worst, err)
+            worst[mode] = max(worst[mode], err)
             if not torch.allclose(got, want, atol=2e-2 * scale, rtol=2e-2):
-                fail(f"reference: prefill logits off by {err} (relative)")
+                fail(f"reference {mode}: prefill logits off by {err} "
+                     f"(relative)")
             cg = lm.init_cache(cfg, 2, 16, device="cuda")
             cc = lm.init_cache(cfg32, 2, 16, device="cpu")
             for i in range(4):
                 tk = toks[:, i:i + 1]
-                lg, cg = lm.decode_step(gpu, cfg, tk, ctrl, cg, i)
-                lc, cc = lm.decode_step(cpu, cfg32, tk, ctrl, cc, i)
+                lg, cg = lm.decode_step(gpu, cfg, tk, ctrl, cg, i,
+                                        slice_mode=mode)
+                lc, cc = lm.decode_step(cpu, cfg32, tk, ctrl, cc, i,
+                                        slice_mode=mode)
                 lg = lg.float().cpu()
                 scale = lc.abs().max().item()
                 err = (lg - lc).abs().max().item() / scale
-                worst = max(worst, err)
+                worst[mode] = max(worst[mode], err)
                 if not torch.allclose(lg, lc, atol=2e-2 * scale, rtol=2e-2):
-                    fail(f"reference: decode step {i} off by {err}")
+                    fail(f"reference {mode}: decode step {i} off by {err}")
     say("reference", layers=2, d_model=cfg.d_model, vocab=cfg.vocab_size,
-        subnets=[0, len(pts) - 1], max_rel_err=worst, tol="2e-2 of max|ref|")
+        subnets=[0, len(pts) - 1], max_rel_err=worst["mask"],
+        switch_max_rel_err=worst["switch"], tol="2e-2 of max|ref|")
 
 
 # --------------------------------------------------------------------------
@@ -454,6 +705,8 @@ SOURCES = {
                         "src/repro/kernels/flash_attention.py:100"),
     "decode_attention": ("cuda", "src/repro_torch/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention.py:91"),
+    "sliced_matmul": ("cuda", "src/repro_torch/csrc/sliced_matmul.cu",
+                      "src/repro/kernels/sliced_matmul.py:83"),
 }
 
 
@@ -473,8 +726,8 @@ def main(argv) -> int:
     kernels = phase_kernels(torch, card)
     if "--quick" in argv:
         return 0
-    serve_launches = phase_serve(torch)
-    decode_launches = phase_decode(torch)
+    path_launches = [phase_serve(torch), phase_decode(torch),
+                     phase_switch(torch)]
     phase_trace(torch)
     phase_reference(torch)
     line = []
@@ -483,8 +736,7 @@ def main(argv) -> int:
         k = kernels[name]
         line.append({"name": name, "route": route, "source": source,
                      "replaces": replaces,
-                     "launches": serve_launches.get(name, 0)
-                     + decode_launches.get(name, 0),
+                     "launches": sum(n.get(name, 0) for n in path_launches),
                      "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                      "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                      "bound_by": k["bound_by"],

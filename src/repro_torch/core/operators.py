@@ -7,8 +7,13 @@
 * :func:`subnet_norm` — SubnetNorm: normalization with per-subnet gain
   (and optional bias) rows picked by ``subnet_id``. The plain RMS flavor
   goes through the kernel entry point (Triton on CUDA).
-* :func:`sliced_matmul` / :func:`slice_mask` — WeightSlice in mask mode:
-  full-shape matmul with channel masks.
+* :func:`sliced_matmul` / :func:`slice_mask` — WeightSlice. Two modes:
+  ``mask``   : full-shape matmul with channel masks (full FLOPs);
+  ``switch`` : the ``sliced_matmul`` kernel over the active prefix. JAX
+               switches over static branches with ``lax.switch``; here the
+               bucket picks the widths from a small device table and the
+               kernel reads them from device memory, so no branch is taken
+               on the host.
 
 Widths and ``subnet_id`` are 0-d int32 tensors on the data's device (see
 :func:`device_control`), used as data by masks and kernels, never read
@@ -16,7 +21,7 @@ back to the host: actuating another subnet changes values, not shapes.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -107,17 +112,63 @@ def slice_mask(x, active, axis: int = -1):
     return x * m.reshape(shape)
 
 
+SLICE_MODES = ("mask", "switch")
+
+
 def check_slice_mode(mode: str) -> None:
-    """Only WeightSlice's mask mode is ported; switch mode raises."""
-    if mode != "mask":
-        raise NotImplementedError(f"WeightSlice mode {mode!r} comes with a "
-                                  f"later slice of the port; only 'mask'")
+    """Raise ``ValueError`` unless ``mode`` is a WeightSlice mode."""
+    if mode not in SLICE_MODES:
+        raise ValueError(f"unknown WeightSlice mode {mode!r}; "
+                         f"expected one of {SLICE_MODES}")
 
 
-def sliced_matmul(x, w, active_in, active_out, *, mode: str = "mask"):
+_option_tables: Dict[Tuple, torch.Tensor] = {}
+
+
+def _option_table(pairs: Tuple[Tuple[int, int], ...],
+                  device) -> torch.Tensor:
+    """(n, 2) int32 table of the (in, out) width pairs on ``device``, made
+    once per options tuple and device."""
+    key = (pairs, str(device))
+    table = _option_tables.get(key)
+    if table is None:
+        table = torch.tensor(pairs, dtype=torch.int32, device=device)
+        _option_tables[key] = table
+    return table
+
+
+def sliced_matmul(x, w, active_in, active_out, *, mode: str = "mask",
+                  in_options: Sequence[int] = (),
+                  out_options: Sequence[int] = (), bucket=None):
     """WeightSlice matmul: ``y = x[..., :k_in] @ w[:k_in, :k_out]`` with
-    the output zero-padded to w.shape[-1], at full FLOPs (mask mode)."""
+    the output zero-padded to w.shape[-1].
+
+    mask mode:   ``active_in``/``active_out`` (any value), full FLOPs.
+    switch mode: ``bucket`` (an int or a 0-d integer tensor, clipped)
+                 indexes the zipped option lists; the kernel computes only
+                 the active prefix.
+    """
     check_slice_mode(mode)
-    xm = slice_mask(x, active_in) if active_in is not None else x
-    y = xm @ w
-    return slice_mask(y, active_out) if active_out is not None else y
+    if mode == "mask":
+        xm = slice_mask(x, active_in) if active_in is not None else x
+        y = xm @ w
+        return slice_mask(y, active_out) if active_out is not None else y
+
+    from repro_torch.kernels import ops as kops
+    ins = list(in_options) or [w.shape[0]]
+    outs = list(out_options) or [w.shape[1]]
+    # bucket enumerates the zipped (not crossed) option list when the two
+    # dims are driven by the same control knob
+    n = max(len(ins), len(outs))
+    ins = ins * n if len(ins) == 1 else ins
+    outs = outs * n if len(outs) == 1 else outs
+    pairs = list(zip(ins, outs))
+    if isinstance(bucket, torch.Tensor):
+        table = _option_table(tuple(pairs), x.device)
+        b = torch.clamp(bucket.reshape(1).to(x.device).long(), 0,
+                        len(pairs) - 1)
+        widths = torch.index_select(table, 0, b)[0]
+        k_in, k_out = widths[0], widths[1]
+    else:
+        k_in, k_out = pairs[min(max(int(bucket), 0), len(pairs) - 1)]
+    return kops.sliced_matmul(x, w, k_in, k_out)

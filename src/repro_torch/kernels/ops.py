@@ -13,6 +13,7 @@ from __future__ import annotations
 from repro_torch.kernels import ref
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import sliced_matmul as _sliced
 from repro_torch.kernels import subnet_rmsnorm as _rmsnorm
 from repro_torch.kernels.dispatch import DISPATCHER, register
 
@@ -43,11 +44,18 @@ def _decode_torch(q, k_cache, v_cache, index, *, window, kv_block):
                                           window=window, kv_block=kv_block)
 
 
+@register("sliced_matmul", "cuda")
+def _sliced_cuda(x, w, active_in, active_out, *, segments, bm, bk, bn):
+    # tile sizes are fixed by the kernel (64 x 64 x 32); the block
+    # arguments are kept for the JAX entry point's signature
+    return _sliced.sliced_matmul(x, w, active_in, active_out,
+                                 segments=segments)
+
+
 @register("sliced_matmul", "torch")
-def _sliced_torch(x, w, active_in, active_out, *, bm=0, bk=0, bn=0):
-    y = ref.sliced_matmul_ref(x.reshape(-1, x.shape[-1]), w, active_in,
-                              active_out)
-    return y.reshape(*x.shape[:-1], w.shape[1])
+def _sliced_torch(x, w, active_in, active_out, *, segments, bm, bk, bn):
+    return _sliced.sliced_matmul_plain(x, w, active_in, active_out,
+                                       segments=segments)
 
 
 @register("subnet_rmsnorm", "cuda")
@@ -79,11 +87,14 @@ def decode_attention(q, k_cache, v_cache, index, *, window=0, kv_block=256,
         kv_block=kv_block, tier=tier)
 
 
-def sliced_matmul(x, w, active_in, active_out, *, bm=128, bk=128, bn=128,
-                  tier=None):
+def sliced_matmul(x, w, active_in, active_out, *, segments=1, bm=128, bk=128,
+                  bn=128, tier=None):
+    """``x[..., :active_in] @ w[:active_in, :active_out]``, zeros past
+    ``active_out``; with ``segments`` > 1 the prefix is taken in each of
+    that many equal segments of K (see ``kernels/sliced_matmul.py``)."""
     return DISPATCHER.call(
-        "sliced_matmul", x, w, active_in, active_out, bm=bm, bk=bk, bn=bn,
-        tier=tier)
+        "sliced_matmul", x, w, active_in, active_out, segments=segments,
+        bm=bm, bk=bk, bn=bn, tier=tier)
 
 
 def subnet_rmsnorm(x, gamma_table, subnet_id, *, eps=1e-5, tier=None):

@@ -13,9 +13,12 @@ latencies, and serves a trace through the unchanged scheduling stack.
 ``--size full`` (the default on ``--device cuda``) keeps the published
 widths and depth; ``--size reduced`` is the small fp32 twin of the JAX
 launcher and runs with ``--device cpu`` (the default there), since the
-CUDA kernels take bf16 with head_dim 128. The output JSON reports the
-kernel builds seen while serving (``serve_phase_builds``, 0 after
-warmup) and the kernel launches of the serve phase.
+CUDA kernels take bf16 with head_dim 128. ``--slice-mode switch`` serves
+with WeightSlice switch mode (the ``sliced_matmul`` kernel computes only
+the active FFN and head widths) instead of the default mask mode. The
+output JSON reports the slice mode, the kernel builds seen while serving
+(``serve_phase_builds``, 0 after warmup) and the kernel launches of the
+serve phase.
 """
 from __future__ import annotations
 
@@ -113,6 +116,10 @@ def parse_args(argv: Optional[List[str]] = None):
                          "treats each worker as a server of its own, but "
                          "threads on one device share its stream (and the "
                          "GIL), so one device is one worker")
+    ap.add_argument("--slice-mode", default="mask", choices=("mask", "switch"),
+                    help="WeightSlice mode of the executor: mask (full "
+                         "FLOPs, inactive channels zeroed) or switch (the "
+                         "sliced_matmul kernel over the active widths)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--size", default=None, choices=("full", "reduced"),
@@ -137,9 +144,11 @@ def run(argv: Optional[List[str]] = None) -> Dict:
         raise ValueError(f"{args.arch}: the port serves token-frontend LMs")
     if args.size == "reduced":
         cfg = cfg.reduced()
-    from repro_torch.serving.executor import build_executor
+    from repro_torch.serving.executor import ExecutorConfig, build_executor
     t0 = time.perf_counter()
-    executor = build_executor(cfg, seed=args.seed, device=device)
+    executor = build_executor(
+        cfg, seed=args.seed, device=device,
+        exec_cfg=ExecutorConfig(slice_mode=args.slice_mode))
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     init_s = time.perf_counter() - t0
@@ -169,6 +178,7 @@ def run(argv: Optional[List[str]] = None) -> Dict:
     out = {"arch": args.arch, "size": args.size, "mode": "real",
            "device": (torch.cuda.get_device_name(device)
                       if device.type == "cuda" else "cpu"),
+           "slice_mode": executor.xcfg.slice_mode,
            "profile": "measured", "policy": pol.name,
            "workers": args.workers, "seq_len": args.seq_len,
            "init_seconds": init_s,

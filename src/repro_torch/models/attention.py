@@ -4,8 +4,17 @@ SubNetAct head elasticity, flash prefill and cached decode (port of
 
 The attention itself goes through the kernel entry points
 (``kernels.ops.model_flash_attention`` / ``model_decode_attention``): the
-CUDA kernels on the GPU, their plain versions on the CPU. M-RoPE and the
-WeightSlice switch mode come with later slices of the port.
+CUDA kernels on the GPU, their plain versions on the CPU. M-RoPE comes
+with a later slice of the port.
+
+WeightSlice switch mode (prefill): attention runs over all query heads as
+in mask mode, and the output projection goes through the ``sliced_matmul``
+kernel, which contracts only the rows of the active heads: under GQA the
+first ``head_width // kv`` heads of each KV group (one K segment per KV
+head), under MHA the first ``head_width`` heads. The width it reads,
+``wo_in_width`` = active heads per segment x head_dim, is derived once per
+control tuple by :func:`with_wo_width`. Decode has no switch branch (as in
+the JAX package) and runs the mask path.
 """
 from __future__ import annotations
 
@@ -17,6 +26,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import operators as ops
 from repro_torch.core.subnet import head_group_size
+from repro_torch.kernels import ops as kops
 from repro_torch.models.common import dense_init, ones_table
 
 # --------------------------------------------------------------------------
@@ -116,6 +126,29 @@ def head_mask(cfg: ArchConfig, o, head_width):
     return o * m.reshape(shape).to(o.dtype)
 
 
+WO_WIDTH = "wo_in_width"
+
+
+def wo_segments(cfg: ArchConfig) -> int:
+    """K segments of the output projection in switch mode: one per KV head
+    under GQA (heads are sliced inside each group), one under MHA."""
+    group = head_group_size(cfg)
+    return cfg.n_heads // group if group > 1 else 1
+
+
+def with_wo_width(cfg: ArchConfig, ctrl: Dict) -> Dict:
+    """``ctrl`` with ``wo_in_width``: the rows of each ``wo`` segment that
+    the active heads use, ``(head_width // segments) * head_dim``. Computed
+    in numpy for a host tuple and with one device op for a converted one;
+    a tuple that has it passes through unchanged."""
+    if WO_WIDTH in ctrl:
+        return ctrl
+    out = dict(ctrl)
+    out[WO_WIDTH] = (ctrl["head_width"] // wo_segments(cfg)
+                     * cfg.resolved_head_dim)
+    return out
+
+
 def attention_block(p, cfg: ArchConfig, x, ctrl, positions, *,
                     slice_mode: str = "mask", attn_impl=None,
                     q_block: int = 512, kv_block: int = 512):
@@ -136,6 +169,13 @@ def attention_block(p, cfg: ArchConfig, x, ctrl, positions, *,
     o = attn_impl(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                   causal=True, window=cfg.sliding_window)
     o = o.transpose(1, 2)                               # (B,S,H,hd)
+    if slice_mode == "switch" and len(cfg.elastic.head_fracs) > 1:
+        # WeightSlice(switch): only the active heads' rows of wo are read
+        # (o is a view of the kernel's (B, S, H, hd) buffer on the card)
+        y = kops.sliced_matmul(o.reshape(B * S, Hq * hd), p["wo"],
+                               with_wo_width(cfg, ctrl)[WO_WIDTH], None,
+                               segments=wo_segments(cfg))
+        return x + y.reshape(B, S, -1).to(x.dtype)
     # WeightSlice(mask): zero the *outputs* of inactive heads —
     # paper-faithful routing (inactive channels contribute nothing).
     o = head_mask(cfg, o, ctrl["head_width"])

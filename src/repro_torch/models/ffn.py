@@ -1,5 +1,12 @@
 """Dense FFN (SwiGLU / GELU) with SubNetAct width elasticity (port of
-``repro/models/ffn.py``, WeightSlice mask mode)."""
+``repro/models/ffn.py``).
+
+WeightSlice mask mode runs the full d_ff and zeroes the inactive hidden
+channels. Switch mode runs the three projections through the
+``sliced_matmul`` kernel entry point, which reads ``ffn_width`` as data:
+gate and up compute only the first ``ffn_width`` columns (zeros after
+them, and silu(0) * 0 = gelu(0) = 0), down contracts only those rows.
+"""
 from __future__ import annotations
 
 from functools import partial
@@ -10,6 +17,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import operators as ops
+from repro_torch.kernels import ops as kops
 from repro_torch.models.common import dense_init, ones_table
 
 
@@ -35,6 +43,15 @@ def mlp_block(p, cfg: ArchConfig, x, ctrl, *, slice_mode: str = "mask"):
     h = ops.subnet_norm(x, p["norm_gamma"], ctrl["subnet_id"],
                         beta_table=p.get("norm_beta"), eps=cfg.norm_eps,
                         kind=cfg.norm)
+    if slice_mode == "switch" and len(cfg.elastic.ffn_fracs) > 1:
+        width = ctrl["ffn_width"]
+        up = kops.sliced_matmul(h, p["wu"], None, width)
+        if cfg.ffn_act == "swiglu":
+            a = F.silu(kops.sliced_matmul(h, p["wg"], None, width)) * up
+        else:
+            a = F.gelu(up, approximate="tanh")
+        y = kops.sliced_matmul(a, p["wd"], width, None)
+        return x + y.to(x.dtype)
     if cfg.ffn_act == "swiglu":
         a = F.silu(h @ p["wg"]) * (h @ p["wu"])
     else:

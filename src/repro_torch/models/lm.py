@@ -17,6 +17,7 @@ import torch
 from repro_torch import compat
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import operators as ops
+from repro_torch.models import attention as attn_mod
 from repro_torch.models import backbone as bb
 from repro_torch.models.common import dense_init, dtype_of, ones_table
 
@@ -105,6 +106,8 @@ def hidden_states(params, cfg: ArchConfig, batch: Dict[str, Any], ctrl, *,
     """Backbone output (B, S, d) for ``batch["tokens"]`` (B, S)."""
     _check_frontend(cfg)
     dev = _device(params)
+    if slice_mode == "switch":
+        ctrl = attn_mod.with_wo_width(cfg, ctrl)
     ctrl = ops.device_control(ctrl, dev)
     tokens = _tokens(batch["tokens"], dev)
     x = params["embed"][tokens]

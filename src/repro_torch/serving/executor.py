@@ -6,6 +6,11 @@
   ``subnet_id`` become 0-d int32 tensors on the device that masks and
   kernels read. Actuating another subnet passes other tensors; no kernel
   is rebuilt and nothing is read back to the host.
+* **WeightSlice mode** — ``ExecutorConfig.slice_mode`` is ``mask`` (the
+  default: full FLOPs, inactive channels zeroed) or ``switch`` (the
+  ``sliced_matmul`` kernel computes only the active FFN and head widths,
+  read from the same device tensors). Entries run the step in that mode,
+  so warmup builds the sliced kernel too.
 * **Shape buckets** — raw ``(batch, seq)`` shapes are right-padded up to
   configured buckets. Right-padding is exact: the LM is causal, so
   positions ``< length`` never see the pad, and each row's logits are
@@ -42,6 +47,7 @@ from repro_torch.core import operators as ops
 from repro_torch.core import subnet as sn
 from repro_torch.core.pareto import ParetoPoint, pareto_subnets
 from repro_torch.models import lm
+from repro_torch.models.attention import with_wo_width
 
 __all__ = ["ExecutorConfig", "SubnetExecutor", "DecodeCache", "bucket_of",
            "build_executor"]
@@ -69,7 +75,7 @@ class ExecutorConfig:
     batch_buckets: Tuple[int, ...] = (1, 2, 4, 8, 16, 32, 64)
     seq_buckets: Tuple[int, ...] = (16, 32, 64, 128, 256)
     max_entries: int = 32               # LRU cap on warmed entries
-    slice_mode: str = "mask"
+    slice_mode: str = "mask"            # WeightSlice: "mask" or "switch"
 
     def __post_init__(self):
         for name in ("batch_buckets", "seq_buckets"):
@@ -79,6 +85,7 @@ class ExecutorConfig:
                                  f"got {bs}")
         if self.max_entries < 1:
             raise ValueError("max_entries must be >= 1")
+        ops.check_slice_mode(self.slice_mode)
 
 
 @dataclass
@@ -105,8 +112,10 @@ class SubnetExecutor:
         self.cfg = cfg
         self.device = params["embed"].device
         self.points: List[ParetoPoint] = list(points or pareto_subnets(cfg))
-        self.ctrls = [ops.device_control(sn.make_control(cfg, p.sub),
-                                         self.device) for p in self.points]
+        # the switch-mode width of wo is derived here, once per subnet
+        self.ctrls = [ops.device_control(
+            with_wo_width(cfg, sn.make_control(cfg, p.sub)), self.device)
+            for p in self.points]
         self.xcfg = exec_cfg or ExecutorConfig()
         self._cache: "OrderedDict[Tuple, Callable]" = OrderedDict()
         self._lock = threading.RLock()

@@ -66,6 +66,13 @@ def test_executor_config_validates():
         ExecutorConfig(max_entries=0)
 
 
+def test_executor_config_validates_slice_mode():
+    assert ExecutorConfig().slice_mode == "mask"
+    assert ExecutorConfig(slice_mode="switch").slice_mode == "switch"
+    with pytest.raises(ValueError, match="unknown WeightSlice mode"):
+        ExecutorConfig(slice_mode="Switch")
+
+
 def test_build_executor_needs_a_device_or_cuda():
     if torch.cuda.is_available():
         pytest.skip("the host has CUDA: the default device exists")
@@ -252,3 +259,64 @@ def test_launcher_serves_on_cpu():
     assert out["serve_phase_builds"] == 0
     with pytest.raises(SystemExit):
         serve.parse_args(["--device", "cuda", "--size", "reduced"])
+
+
+# --------------------------------------------------------------------------
+# WeightSlice switch mode
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n_kv", [2, 4])
+def test_switch_executor_matches_jax_and_builds_nothing_after_warmup(n_kv):
+    """A switch-mode executor against JAX's switch-mode SubnetExecutor on
+    the same weights, prefill for every subnet and decode for the smallest
+    and largest; after warmup nothing is built or compiled."""
+    jcfg = tiny_dense(n_kv_heads=n_kv)
+    xc = dict(batch_buckets=(1, 2, 4), seq_buckets=(8, 16), slice_mode="switch")
+    jex = jexec.build_executor(jcfg, exec_cfg=jexec.ExecutorConfig(**xc))
+    tex = SubnetExecutor(port_params(jex.params), port_cfg(jcfg),
+                         exec_cfg=ExecutorConfig(**xc))
+    tex.warmup(batches=(2, 4), seqs=(8,), decode=True)
+    before = tex.counters()["compiles"]
+    rng = np.random.default_rng(13)
+    toks = rng.integers(0, jcfg.vocab_size, (3, 7)).astype(np.int32)
+    dec = rng.integers(0, jcfg.vocab_size, (2, 5)).astype(np.int32)
+    with compat.BuildCounter() as bc:
+        for idx in range(tex.n_subnets):
+            np.testing.assert_allclose(tex.prefill(idx, toks),
+                                       jex.prefill(idx, toks), **XTOL,
+                                       err_msg=f"prefill subnet {idx}")
+        for idx in (0, tex.n_subnets - 1):
+            jc, tc = jex.init_cache(2, 8), tex.init_cache(2, 8)
+            for i in range(dec.shape[1]):
+                want, jc = jex.decode_step(idx, dec[:, i:i + 1], jc, i)
+                got, tc = tex.decode_step(idx, dec[:, i:i + 1], tc, i)
+                np.testing.assert_allclose(got, want, **XTOL,
+                                           err_msg=f"subnet {idx} step {i}")
+    assert bc.count == 0
+    assert tex.counters()["compiles"] == before
+
+
+def test_switch_executor_derives_wo_width_once_per_subnet():
+    ex = _executor(ExecutorConfig(slice_mode="switch"))
+    for ctrl, p in zip(ex.ctrls, ex.points):
+        wid = ctrl["wo_in_width"]
+        assert isinstance(wid, torch.Tensor) and wid.dtype == torch.int32
+        assert int(wid) == int(ctrl["head_width"]) // 2 * ex.cfg.head_dim
+    toks = np.ones((2, 8), np.int32)
+    mask = _executor(ExecutorConfig())
+    for idx in (0, ex.n_subnets - 1):
+        np.testing.assert_allclose(ex.prefill(idx, toks),
+                                   mask.prefill(idx, toks), **TOL)
+
+
+def test_launcher_serves_switch_mode_on_cpu():
+    from repro_torch.launch import serve
+    out = serve.run(["--device", "cpu", "--queries", "8",
+                     "--slice-mode", "switch"])
+    assert out["slice_mode"] == "switch"
+    assert out["served"] == out["queries"] >= 1
+    assert out["serve_phase_builds"] == 0
+    assert serve.parse_args([]).slice_mode == "mask"
+    with pytest.raises(SystemExit):
+        serve.parse_args(["--slice-mode", "crossed"])

@@ -19,8 +19,9 @@ from repro_torch import compat
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import sliced_matmul as sm
 from repro_torch.kernels import subnet_rmsnorm as rn
-from repro_torch.kernels.dispatch import DISPATCHER
+from repro_torch.kernels.dispatch import DISPATCHER, KernelDispatcher
 
 DTYPES = ["float32", "bfloat16"]
 
@@ -168,6 +169,44 @@ def test_sliced_matmul_plain_matches_jax(M, K, N, dtype):
         _close(got, want_d, dtype)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("M,K,N", [(7, 200, 96), (16, 256, 100)])
+def test_sliced_matmul_plain_matches_ref_at_partial_widths(M, K, N, dtype):
+    """Widths that cut a tile (the kernel's boundary cases) against the
+    JAX dense oracle and the port's, as ints and as 0-d tensors."""
+    rng = np.random.default_rng(8)
+    jx, tx = _pair(rng, (M, K), dtype)
+    jw, tw = _pair(rng, (K, N), dtype)
+    for ai, ao in ((K, N), (K - 56, N - 3), (1, 1), (0, N), (K, 0)):
+        want = jref.sliced_matmul_ref(jx, jw, ai, ao)
+        for a, b in ((ai, ao), (torch.tensor(ai, dtype=torch.int32),
+                                torch.tensor(ao, dtype=torch.int32))):
+            got = sm.sliced_matmul_plain(tx, tw, a, b)
+            _close(got, want, dtype)
+            _close(got, ref.sliced_matmul_ref(tx, tw, a, b), dtype)
+            assert not got[:, ao:].any()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kv,group,hd", [(2, 6, 16), (2, 2, 16), (4, 3, 8)])
+def test_sliced_matmul_segments_match_jax_gqa_projection(kv, group, hd, dtype):
+    """``segments=kv`` computes the GQA output projection of JAX's switch
+    branch (repro/models/attention.py): o of the first ``a`` heads of every
+    KV group against those heads' rows of wo."""
+    M, d = 10, 48
+    rng = np.random.default_rng(9)
+    jo, to = _pair(rng, (M, kv * group * hd), dtype)
+    jw, tw = _pair(rng, (kv * group * hd, d), dtype)
+    for a in range(1, group + 1):
+        os_ = jo.reshape(M, kv, group, hd)[:, :, :a].reshape(M, kv * a * hd)
+        ws = jw.reshape(kv, group, hd, d)[:, :a].reshape(kv * a * hd, d)
+        want = jnp.matmul(os_.astype(jnp.float32), ws.astype(jnp.float32))
+        got = ops.sliced_matmul(to, tw, torch.tensor(a * hd), None,
+                                segments=kv)
+        assert got.dtype == to.dtype and got.shape == (M, d)
+        _close(got, want, dtype)
+
+
 # --------------------------------------------------------------------------
 # device-decided dispatch: no fallback in either direction
 # --------------------------------------------------------------------------
@@ -195,8 +234,16 @@ def test_cpu_tensor_forced_to_cuda_tier_raises():
 
 
 def test_unported_kernel_raises_on_cuda():
+    """Every kernel of the registry has its CUDA tier, sliced_matmul
+    included; a kernel registered without one raises on a CUDA device."""
+    for name in DISPATCHER.kernels():
+        tier, fn = DISPATCHER.resolve(name, torch.device("cuda"))
+        assert tier == "cuda" and fn is DISPATCHER._impls[name]["cuda"]
+    assert DISPATCHER.registered_tiers("sliced_matmul") == ("cuda", "torch")
+    reg = KernelDispatcher()
+    reg.register("plain_only", "torch", lambda x: x)
     with pytest.raises(KeyError, match="no 'cuda' implementation"):
-        DISPATCHER.resolve("sliced_matmul", torch.device("cuda"))
+        reg.resolve("plain_only", torch.device("cuda"))
 
 
 def test_pinned_tier_is_checked(monkeypatch):
@@ -227,6 +274,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         rn.subnet_rmsnorm(q, torch.ones((1, 128)),
                           torch.tensor([0], dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA"):
+        sm.sliced_matmul(q[0, 0], q[0, 0].T, None, None)
 
 
 def test_build_counter_reads_triton_builds_at_its_edges(monkeypatch):

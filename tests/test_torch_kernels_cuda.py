@@ -11,6 +11,7 @@ import torch
 
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import sliced_matmul as sm
 from repro_torch.kernels import subnet_rmsnorm as rn
 
 TOL = dict(rtol=2e-2, atol=2e-2)
@@ -81,6 +82,48 @@ def test_subnet_rmsnorm_kernel_matches_plain(cuda):
                 **TOL)
 
 
+def _i32(v, dev):
+    return torch.tensor(v, dtype=torch.int32, device=dev)
+
+
+def test_sliced_matmul_kernel_matches_plain(cuda):
+    """Main-path shapes, partial K and N tiles, rows past M, widths as
+    ints and read from device memory; columns past active_out are 0."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    cases = [(128, 1536, 8960, None, 4480), (8, 1536, 8960, None, 6656),
+             (128, 8960, 1536, 4480, None), (8, 8960, 1536, 8960, None),
+             (7, 256, 192, 200, 100), (65, 264, 136, 9, 1), (3, 64, 64, 0, 64),
+             (5, 128, 256, 128, 0)]
+    for M, K, N, ai, ao in cases:
+        x, w = _randn(gen, M, K, dev=cuda), _randn(gen, K, N, dev=cuda)
+        want = sm.sliced_matmul_plain(x, w, ai, ao)
+        for a, b in ((ai, ao), (None if ai is None else _i32(ai, cuda),
+                                None if ao is None else _i32(ao, cuda))):
+            got = sm.sliced_matmul(x, w, a, b)
+            torch.testing.assert_close(got.float(), want.float(), **TOL)
+            if ao is not None:
+                assert not got[:, ao:].any()
+
+
+def test_sliced_matmul_kernel_takes_strided_segments(cuda):
+    """The GQA output projection: a (B*S, Hq*hd) view with a row stride of
+    its own, in 2 segments with 3 of 6 heads each, and per-group views."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    buf = _randn(gen, 16, 2 * 1536 + 64, dev=cuda)
+    o = buf[:, 64:64 + 1536]                       # row stride 3136
+    wo = _randn(gen, 1536, 1536, dev=cuda)
+    for heads in (3, 6):
+        act = _i32(heads * 128, cuda)
+        got = sm.sliced_matmul(o, wo, act, None, segments=2)
+        want = sm.sliced_matmul_plain(o, wo, act, None, segments=2)
+        torch.testing.assert_close(got.float(), want.float(), **TOL)
+        for g in range(2):                         # one group's views
+            og, wg = o[:, g * 768:(g + 1) * 768], wo[g * 768:(g + 1) * 768]
+            torch.testing.assert_close(
+                sm.sliced_matmul(og, wg, act, None).float(),
+                sm.sliced_matmul_plain(og, wg, act, None).float(), **TOL)
+
+
 # --------------------------------------------------------------------------
 # the model and the executor on the card, against the plain path on the CPU
 # --------------------------------------------------------------------------
@@ -125,6 +168,31 @@ def test_lm_on_card_matches_cpu_plain_path_for_every_subnet(cuda):
             _close_rel(lg, lc)
 
 
+def test_switch_lm_on_card_matches_cpu_plain_path_for_every_subnet(cuda):
+    import numpy as np
+    from repro_torch.core import subnet as sn
+    from repro_torch.models import lm
+    cfg = _small_cfg()
+    gpu = lm.init_model(cfg, torch.Generator(device=cuda).manual_seed(1), cuda)
+    cpu = lm.from_jax_params(_to_numpy(gpu), device="cpu")
+    cfg32 = cfg.replace(dtype="float32")
+    toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 24))
+    with torch.no_grad():
+        for sub in sn.enumerate_space(cfg):
+            ctrl = sn.make_control(cfg, sub)
+            _close_rel(lm.forward(gpu, cfg, {"tokens": toks}, ctrl,
+                                  slice_mode="switch"),
+                       lm.forward(cpu, cfg32, {"tokens": toks}, ctrl))
+            cg = lm.init_cache(cfg, 2, 8, device=cuda)
+            cc = lm.init_cache(cfg32, 2, 8, device="cpu")
+            for i in range(3):
+                lg, cg = lm.decode_step(gpu, cfg, toks[:, i:i + 1], ctrl, cg,
+                                        i, slice_mode="switch")
+                lc, cc = lm.decode_step(cpu, cfg32, toks[:, i:i + 1], ctrl,
+                                        cc, i)
+                _close_rel(lg, lc)
+
+
 def _to_numpy(tree):
     if isinstance(tree, dict):
         return {k: _to_numpy(v) for k, v in tree.items()}
@@ -134,12 +202,21 @@ def _to_numpy(tree):
 
 
 def test_executor_on_card_builds_nothing_after_warmup(cuda):
+    _executor_builds_nothing_after_warmup(cuda, "mask")
+
+
+def test_switch_executor_on_card_builds_nothing_after_warmup(cuda):
+    _executor_builds_nothing_after_warmup(cuda, "switch")
+
+
+def _executor_builds_nothing_after_warmup(cuda, slice_mode):
     import numpy as np
     from repro_torch import compat
     from repro_torch.serving.executor import ExecutorConfig, build_executor
     ex = build_executor(_small_cfg(), seed=0, device=cuda,
                         exec_cfg=ExecutorConfig(batch_buckets=(1, 2, 4),
-                                                seq_buckets=(16,)))
+                                                seq_buckets=(16,),
+                                                slice_mode=slice_mode))
     ex.warmup(batches=(1, 2, 4), seqs=(16,), decode=True)
     compat.reset_launch_counts()
     with compat.BuildCounter() as bc:
@@ -155,3 +232,4 @@ def test_executor_on_card_builds_nothing_after_warmup(cuda):
     launches = compat.launch_counts()
     for name in ("flash_attention", "subnet_rmsnorm", "decode_attention"):
         assert launches.get(name, 0) > 0, name
+    assert (launches.get("sliced_matmul", 0) > 0) == (slice_mode == "switch")

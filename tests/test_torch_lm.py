@@ -148,3 +148,94 @@ def test_unported_families_raise():
         stages=(pbase.Stage(("mamba",), repeat=1),))
     with pytest.raises(NotImplementedError, match="later slice"):
         tlm.init_model(cfg, device="cpu")
+
+
+# --------------------------------------------------------------------------
+# WeightSlice switch mode: the sliced_matmul entry point against JAX's
+# lax.switch branches, for a GQA and an MHA config, every subnet
+# --------------------------------------------------------------------------
+
+SWITCH_CFGS = {"gqa": tiny_dense, "mha": lambda: tiny_dense(n_kv_heads=4)}
+
+
+@pytest.fixture(scope="module", params=list(SWITCH_CFGS))
+def switch_model(request):
+    jcfg = SWITCH_CFGS[request.param]()
+    jparams = jlm.init_model(jax.random.PRNGKey(1), jcfg)
+    return jcfg, port_cfg(jcfg), jparams, port_params(jparams)
+
+
+def test_switch_forward_and_prefill_match_jax_for_every_subnet(switch_model):
+    jcfg, tcfg, jparams, tparams = switch_model
+    toks = np.random.default_rng(10).integers(
+        0, jcfg.vocab_size, (2, 12)).astype(np.int32)
+    fwd = jax.jit(lambda p, t, c: jlm.forward(p, jcfg, {"tokens": t}, c,
+                                              slice_mode="switch"))
+    pre = jax.jit(lambda p, t, c: jlm.prefill(p, jcfg, {"tokens": t}, c,
+                                              slice_mode="switch"))
+    for jsub, tsub in _subnets(jcfg, tcfg):
+        jctrl, tctrl = jsn.make_control(jcfg, jsub), tsn.make_control(tcfg, tsub)
+        got = tlm.forward(tparams, tcfg, {"tokens": toks}, tctrl,
+                          slice_mode="switch")
+        np.testing.assert_allclose(got.numpy(),
+                                   np.asarray(fwd(jparams, toks, jctrl)),
+                                   **TOL, err_msg=f"forward {tsub}")
+        got = tlm.prefill(tparams, tcfg, {"tokens": toks}, tctrl,
+                          slice_mode="switch")
+        np.testing.assert_allclose(got.numpy(),
+                                   np.asarray(pre(jparams, toks, jctrl)),
+                                   **TOL, err_msg=f"prefill {tsub}")
+
+
+def test_switch_decode_8_steps_match_jax_for_every_subnet(switch_model):
+    jcfg, tcfg, jparams, tparams = switch_model
+    toks = np.random.default_rng(11).integers(
+        0, jcfg.vocab_size, (2, 8)).astype(np.int32)
+    step = jlm.cached_decode_step(jcfg, "switch")
+    for jsub, tsub in _subnets(jcfg, tcfg):
+        jctrl, tctrl = jsn.make_control(jcfg, jsub), tsn.make_control(tcfg, tsub)
+        jcache = jlm.init_cache(jcfg, 2, 16)
+        tcache = tlm.init_cache(tcfg, 2, 16, device="cpu")
+        for i in range(8):
+            want, jcache = step(jparams, jnp.asarray(toks[:, i:i + 1]), jctrl,
+                                jcache, jnp.int32(i))
+            got, tcache = tlm.decode_step(tparams, tcfg, toks[:, i:i + 1],
+                                          tctrl, tcache, i,
+                                          slice_mode="switch")
+            np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL,
+                                       err_msg=f"{tsub} step {i}")
+
+
+def test_switch_equals_mask_in_the_port(switch_model):
+    """Both WeightSlice modes compute the same subnet function."""
+    _, tcfg, _, tparams = switch_model
+    toks = np.random.default_rng(12).integers(
+        0, tcfg.vocab_size, (3, 9)).astype(np.int32)
+    for sub in tsn.enumerate_space(tcfg):
+        ctrl = tsn.make_control(tcfg, sub)
+        mask = tlm.forward(tparams, tcfg, {"tokens": toks}, ctrl)
+        switch = tlm.forward(tparams, tcfg, {"tokens": toks}, ctrl,
+                             slice_mode="switch")
+        np.testing.assert_allclose(switch.numpy(), mask.numpy(), **TOL,
+                                   err_msg=f"subnet {sub}")
+    with pytest.raises(ValueError, match="unknown WeightSlice mode"):
+        tlm.forward(tparams, tcfg, {"tokens": toks}, ctrl, slice_mode="slice")
+
+
+def test_switch_widths_agree_with_buckets_for_qwen2():
+    """Switch mode reads ``ffn_width`` and ``head_width`` directly; they
+    are the options the JAX branches index by bucket, for every subnet of
+    the full qwen2-1.5b config, and the derived wo width is per KV group."""
+    from repro_torch.configs import get_config as tget
+    from repro_torch.models import attention as tattn
+    cfg = tget("qwen2-1.5b")
+    opts = tsn.width_options(cfg)
+    assert opts["ffn"] == [4480, 6656, 8960]
+    for sub in tsn.enumerate_space(cfg):
+        ctrl = tsn.make_control(cfg, sub)
+        assert ctrl["ffn_width"] == opts["ffn"][ctrl["ffn_bucket"]]
+        assert ctrl["head_width"] == opts["heads"][ctrl["head_bucket"]]
+        wid = tattn.with_wo_width(cfg, ctrl)[tattn.WO_WIDTH]
+        assert wid == ctrl["head_width"] // 2 * 128 in (384, 768)
+    assert tattn.wo_segments(cfg) == 2
+    assert tattn.wo_segments(port_cfg(tiny_dense(n_kv_heads=4))) == 1

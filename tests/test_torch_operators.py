@@ -55,10 +55,46 @@ def test_sliced_matmul_mask_mode_matches_jax(ai, ao):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
+SWITCH_OPTIONS = {
+    "zipped": ((32, 64, 128), (24, 48, 96)),
+    "in-only": ((40, 128), ()),
+    "out-only": ((), (17, 50, 96)),
+    "one-in-many-out": ((64,), (48, 96)),
+}
+
+
+@pytest.mark.parametrize("bucket", [-1, 0, 1, 2, 5])
+@pytest.mark.parametrize("as_tensor", [False, True])
+@pytest.mark.parametrize("opts", list(SWITCH_OPTIONS))
+def test_sliced_matmul_switch_mode_matches_jax(opts, as_tensor, bucket):
+    """Switch mode: the bucket (clipped) picks the zipped (in, out) widths
+    from the option lists, as JAX's lax.switch branches do; a bucket
+    tensor is read as data through the device option table."""
+    ins, outs = SWITCH_OPTIONS[opts]
+    x, w = _x((3, 4, 128)), _x((128, 96), 1)
+    want = jops.sliced_matmul(jnp.asarray(x), jnp.asarray(w), None, None,
+                              mode="switch", in_options=ins,
+                              out_options=outs, bucket=jnp.int32(bucket))
+    b = torch.tensor(bucket, dtype=torch.int32) if as_tensor else bucket
+    got = ops.sliced_matmul(torch.from_numpy(x), torch.from_numpy(w), None,
+                            None, mode="switch", in_options=ins,
+                            out_options=outs, bucket=b)
+    assert got.shape == (3, 4, 96)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
 def test_sliced_matmul_switch_mode_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        ops.sliced_matmul(torch.ones((2, 8)), torch.ones((8, 4)), 8, 4,
-                          mode="switch")
+    """The name predates the switch-mode port: both WeightSlice modes run
+    now, and any other mode raises ValueError, as in the JAX package."""
+    x, w = torch.ones((2, 8)), torch.ones((8, 4))
+    for mode in ops.SLICE_MODES:
+        ops.check_slice_mode(mode)
+    assert torch.equal(ops.sliced_matmul(x, w, None, None, mode="switch",
+                                         bucket=0), x @ w)
+    with pytest.raises(ValueError, match="unknown WeightSlice mode"):
+        ops.sliced_matmul(x, w, 8, 4, mode="bogus")
+    with pytest.raises(ValueError, match="unknown WeightSlice mode"):
+        ops.check_slice_mode("mask ")
 
 
 def test_layer_select_gates_on_host_value():

@@ -17,7 +17,8 @@ Phases, one result line each:
    yardstick only) times, and the bound: the larger of bytes over the
    card's memory rate and FLOPs over its peak. ``sliced_matmul`` is timed
    over weight copies that exceed the L2 cache, as each layer finds its
-   weights cold, and its columns past ``active_out`` must be exactly 0.
+   weights cold, its columns past ``active_out`` must be exactly 0, and
+   two launches must give the same bits.
 3. Serve: ``repro_torch.launch.serve`` at the full width and depth of
    qwen2-1.5b (random weights from a seeded ``torch.Generator``), SlackFit
    through the port's Router; every query must be answered, the serve
@@ -323,13 +324,30 @@ def phase_kernels(torch, card):
     return results
 
 
+def host_us(torch, fn, n: int = 200) -> float:
+    """Host microseconds per call of ``fn`` (the wrapper's own cost: the
+    calls are enqueued without a synchronize in between)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 def _sliced_cases(torch, card, randn):
     """sliced_matmul at the switch path's shapes (qwen2-1.5b: FFN gate/up
     (M,1536)x(1536,8960), FFN down (M,8960)x(8960,1536), wo as 2 K
-    segments of 768, M = 128 prefill rows and 8 decode rows) and at
-    awkward ones: 7 rows, a partial K tile, a partial N tile, and
-    per-group strided views. Widths are int32 tensors in device memory.
-    Returns the FFN-up case at M=128, full width (the headline)."""
+    segments of 768, M = 128 prefill rows and 8 decode rows; M = 2048, a
+    prefill of B=8, S=256, reported only) and at awkward ones: 7 rows, a
+    partial K tile, a partial N tile, and per-group strided views. Widths
+    are int32 tensors in device memory. Each case reports the blocks and
+    splits of the kernel's plan (``split_plan``, the Python mirror of
+    what the kernel works out on the card) and the wrapper's host
+    microseconds per call; two launches must give the same bits. Returns
+    the FFN-up case at M=128, full width (the headline)."""
     from repro_torch.kernels import sliced_matmul as sm
     dev = "cuda"
     # (label, M, K, N, active_in, active_out, segments)
@@ -341,7 +359,9 @@ def _sliced_cases(torch, card, randn):
                   for ai in (8960, 6656, 4480)]
         cases += [(f"wo M={M} ai={ai}x2", M, 1536, 1536, ai, None, 2)
                   for ai in (768, 384)]
-    cases += [("awkward M=7 ai=200 ao=100", 7, 1536, 8960, 200, 100, 1)]
+    cases += [("awkward M=7 ai=200 ao=100", 7, 1536, 8960, 200, 100, 1),
+              ("ffn_up M=2048 ao=8960", 2048, 1536, 8960, None, 8960, 1),
+              ("ffn_down M=2048 ai=8960", 2048, 8960, 1536, 8960, None, 1)]
     copies = 4        # 4 x 27.5 MB of weights: more than the 50 MB L2
     headline, errs = None, []
     for label, M, K, N, ai, ao, nseg in cases:
@@ -356,7 +376,11 @@ def _sliced_cases(torch, card, randn):
         err = _compare(torch, f"sliced_matmul {label}", got, want)
         if ao is not None and got[:, ao:].any():
             fail(f"sliced_matmul {label}: nonzero columns past active_out")
+        if not torch.equal(got, sm.sliced_matmul(x, ws[0], a, b,
+                                                 segments=nseg)):
+            fail(f"sliced_matmul {label}: two launches gave different bits")
         errs.append(err)
+        plan = sm.split_plan(M, N, K, nseg, ai, ao, sm.grid_size(x.device))
         kin = (K // nseg if ai is None else ai) * nseg
         kout = N if ao is None else ao
         bound, by = card.bound(2 * (M * kin + kin * kout + M * N),
@@ -364,7 +388,11 @@ def _sliced_cases(torch, card, randn):
         ops = [(x, w) for w in ws]
         row = dict(
             shape=[M, K, N], active_in=ai, active_out=ao, segments=nseg,
-            max_abs_err=err,
+            max_abs_err=err, ctas=plan.grid,
+            busy_ctas=min(plan.grid, plan.units), tile=[plan.bm, sm.BN],
+            splits=plan.splits, tiles_with_one_more_split=plan.extra,
+            host_us=host_us(torch, lambda: sm.sliced_matmul(
+                x, ws[0], a, b, segments=nseg)),
             ms=time_ms(torch, rotating(lambda xx, ww: sm.sliced_matmul(
                 xx, ww, a, b, segments=nseg), ops)),
             plain_ms=time_ms(torch, rotating(

@@ -8,10 +8,6 @@
 // Same semantics: the active widths are data (the TPU kernel's scalar
 // prefetch); here they are int32 values in device memory read by every
 // block, so actuating another subnet changes values, never the launch.
-// K tiles past active_in are neither loaded nor computed, an N tile that
-// starts at or past active_out writes zeros and returns, and the boundary
-// tiles are masked: w rows past active_in load as zeros (cp.async
-// zero-fill), rows past M are not stored, columns past active_out store 0.
 //
 // Segments. K may be cut into `nseg` equal segments of `seg` columns of x
 // (rows of w), each with its own active prefix of active_in:
@@ -21,230 +17,647 @@
 // keeps the first active_in / head_dim query heads of every KV group, in
 // one launch and with no copy of the per-group operands.
 //
-// Design. Blocks of 64 x 64 outputs, four warps of 32 x 32, each issuing
-// mma.sync.m16n8k16 (bf16 x bf16 -> fp32) on fragments read with
-// ldmatrix (x row-major; w row-major through .trans, which gives the B
-// fragments without a transposed copy). 32-deep K tiles of x and w are
-// staged in shared memory by a four-stage cp.async ring, rows padded by
-// 16 bytes so the ldmatrix rows fall on distinct banks. Rows of x, w and
-// y take any stride that keeps them 16-byte aligned.
+// What bounds it on the H100: at the serving shapes (M = 8 to 128 rows
+// against 1536 x 8960 weights) the weight bytes, 2 bytes per weight for
+// at most 2 * 128 FLOPs, far below the card's 295 FLOP/byte; at M = 2048
+// (a prefill of 8 x 256 tokens) the tensor cores' operations.
 //
-// What bounds it: at the serving shapes (M = 8 to 128 rows against
-// 1536 x 8960 weights) the weight bytes bound it, 2 bytes per weight for
-// under 2 * 128 FLOPs, far below the 295 FLOP/byte of the H100. This
-// version stays simple: no TMA, no wgmma, no split-K, so the FFN-down and
-// output projections (N = 1536) run on 24 column tiles, under a fifth of
-// the 132 SMs, at M <= 64 (later work).
+// Schedule (for the bytes: every SM streaming, whatever the widths). The
+// TPU kernel walks K on a sequential grid axis into an accumulator; on the
+// card blocks run in parallel and in no order, and a grid that follows the
+// output tiles leaves most SMs idle when N = 1536 or when half the columns
+// are dead. So the grid is one block per SM, a static fact, and each block
+// reads the widths and works out its share of the live work (make_plan):
+// L live output tiles (column tiles starting below active_out) times T live
+// K tiles (those below active_in, over all segments), each tile cut into S
+// contiguous K ranges. S minimises the K steps of the busiest block plus
+// SPLIT_COST steps for each split's fp32 partial: on the H100 a partial
+// (written, fenced, counted, read back) costs about as much as 4 K steps,
+// and an even division of the K steps over all blocks, which splits
+// nearly every tile, measured slower than this plan at every serving
+// shape. When the plan leaves blocks spare in a single round, the first
+// tiles take one split more each. Unit u (a tile and a split, numbered
+// tile by tile) goes to block u mod grid; dead tiles are zero-written by
+// block d mod grid. A tile of one split writes bf16; otherwise every split
+// writes an fp32 partial to workspace slot u, and the last block to arrive
+// on the tile (an integer counter, __threadfence before the increment)
+// sums the slots in split order and writes bf16, then resets the counter
+// for the next launch. No float atomics: the bits repeat from launch to
+// launch. The same plan is written in Python (kernels/sliced_matmul.py,
+// split_plan) for the tests.
+//
+// Main loop (for the bytes: many in flight without spending threads on
+// them; for the operations at M = 2048: wgmma). Tiles of BM x 128 outputs
+// and 64-deep K steps; BM = 64 up to M = 128 (one warpgroup; twice the
+// output tiles of 128-row ones, so fewer K splits, for a second read of
+// each weight tile that the other row tile's block, running beside it,
+// finds in L2), else 128 (two warpgroups). One producer warp keeps a ring
+// of STAGES shared-memory stages full with TMA (cp.async.bulk.tensor,
+// 128-byte swizzle, rows past M and columns past K or N filled with zeros
+// by the hardware), each stage signalled through an mbarrier; each
+// consumer warpgroup issues four wgmma.mma_async.m64n128k16 a stage, A (x)
+// K-major and B (w, row-major (K, N), so N-major: the transpose bit) read
+// from shared memory by descriptor, one wgmma group kept in flight. TMA
+// loads whole weight rows, so on the last live K tile of a segment the
+// consumers zero the w rows at and past active_in in shared memory (each
+// row is one 128-byte swizzle line, which the swizzle does not move) and
+// fence the async proxy before the wgmma reads them; x past active_in then
+// meets zeros, whatever it holds. The epilogue stages the tile in shared
+// memory, so that partials, sums and the bf16 output move as 16-byte
+// chunks over the tile's live rows only (8 of 64 at a decode step). The
+// tensor maps are encoded on the host: x's per call, w's cached by
+// (pointer, shape, stride).
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+#include <tuple>
+#include <map>
+
 namespace {
 
-constexpr int BM = 64;        // rows of y per block
-constexpr int BN = 64;        // columns of y per block
-constexpr int BK = 32;        // depth of one staged K tile
-constexpr int STAGES = 4;     // cp.async ring depth
-constexpr int THREADS = 128;  // four warps, 2 x 2 over the block tile
-constexpr int XLD = BK + 8;   // 80-byte rows
-constexpr int WLD = BN + 8;   // 144-byte rows
+constexpr int BN = 128;         // columns of y per block tile
+constexpr int BK = 64;          // depth of one K step: one 128-byte row of x
+constexpr int WBOX = 64;        // columns of w per TMA box: 128 bytes
+constexpr int STAGES = 4;       // TMA ring depth
+constexpr int WS_TILES = 1;     // workspace tiles per block of the grid
+constexpr int SPLIT_COST = 4;   // a split's partial, in K steps (see make_plan)
 
-struct SlicedSmem {
-  __nv_bfloat16 x[STAGES][BM][XLD];
-  __nv_bfloat16 w[STAGES][BK][WLD];
+template <int BM>
+struct Tiles {
+  static constexpr int NWG = BM / 64;                // consumer warpgroups
+  static constexpr int CONSUMERS = NWG * 128;
+  static constexpr int THREADS = CONSUMERS + 32;     // + one producer warp
+  static constexpr int X_BYTES = BM * BK * 2;
+  static constexpr int W_BYTES = BK * BN * 2;
+  static constexpr int STAGE_BYTES = X_BYTES + W_BYTES;
+  // the epilogue's fp32 tile, rows padded by 8 floats so that the
+  // accumulator rows of one store fall on distinct banks
+  static constexpr int STG_BYTES = BM * (BN + 8) * 4;
+  // ring, staging tile, then full and empty barriers; +1024 to align
+  static constexpr int SMEM =
+      1024 + STAGES * STAGE_BYTES + STG_BYTES + 2 * STAGES * 8;
 };
+
+// The division of the live work among the blocks (see the header).
+struct Plan {
+  int mt, nt;      // row and column tiles of y
+  int nl;          // live column tiles
+  int kl, T;       // live K tiles per segment, over all segments
+  int S, E, U;     // splits per live tile (S + 1 for tiles t < E), units
+  int n_dead;      // dead tiles (mt x (nt - nl))
+
+  // unit u: live tile t, split s of n, numbered tile by tile
+  __device__ void unit(int u, int& t, int& s, int& n) const {
+    if (u < E * (S + 1)) {
+      n = S + 1;
+      t = u / n;
+      s = u - t * n;
+    } else {
+      const int v = u - E * (S + 1);
+      n = S;
+      t = E + v / S;
+      s = v - (t - E) * S;
+    }
+  }
+  // workspace slot (= unit) of split 0 of live tile t
+  __device__ int first_slot(int t) const {
+    return t < E ? t * (S + 1) : E * (S + 1) + (t - E) * S;
+  }
+};
+
+__device__ __forceinline__ long long cdiv(long long a, long long b) {
+  return (a + b - 1) / b;
+}
+
+// Every thread of the block calls this with the same arguments. The
+// candidates S = 1..min(T, WS_TILES * grid / L) are costed in parallel:
+// ceil(L * S / grid) * ceil(T / S) K steps for the busiest block, plus
+// SPLIT_COST * S for a split tile's fp32 partials (written, then read back
+// by its last block), which measured on the H100 at about SPLIT_COST K
+// steps each; the least cost wins, the smallest S among equals.
+__device__ Plan make_plan(unsigned long long* best, int M, int N, int nseg,
+                          int ai, int ao, int grid, int bm) {
+  Plan p;
+  p.kl = (ai + BK - 1) / BK;
+  p.T = p.kl * nseg;
+  p.nl = p.T > 0 ? (ao + BN - 1) / BN : 0;
+  p.mt = (M + bm - 1) / bm;
+  p.nt = (N + BN - 1) / BN;
+  p.n_dead = p.mt * (p.nt - p.nl);
+  const int L = p.mt * p.nl;
+  if (threadIdx.x == 0) *best = ~0ull;
+  __syncthreads();
+  if (L > 0) {
+    const int top = max(1, min(p.T, WS_TILES * grid / L));
+    unsigned long long mine = ~0ull;
+    for (int s = threadIdx.x + 1; s <= top; s += blockDim.x) {
+      const long long cost =
+          s == 1 ? cdiv(L, grid) * p.T
+                 : cdiv(static_cast<long long>(L) * s, grid) * cdiv(p.T, s)
+                       + SPLIT_COST * s;
+      const unsigned long long key =
+          (static_cast<unsigned long long>(cost) << 16) | s;
+      mine = key < mine ? key : mine;
+    }
+    if (mine != ~0ull) atomicMin(best, mine);
+  }
+  __syncthreads();
+  p.S = L > 0 ? static_cast<int>(*best & 0xffff) : 1;
+  // one round: the spare blocks each take one more split of a tile
+  p.E = L * p.S < grid && p.S < p.T ? min(L, grid - L * p.S) : 0;
+  p.U = L * p.S + p.E;
+  return p;
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 16-byte async copy; with pred false the destination is zero-filled and
-// nothing is read
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool pred) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(pred ? 16 : 0));
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(count) : "memory");
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
 }
 
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_addr(bar)) : "memory");
+}
+
+// wait until the phase of parity `parity` of the barrier has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// TMA: the box at (c0 inner, c1 outer) of the tensor map into shared
+// memory, completing `bar`'s transaction bytes
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_addr(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// consumer threads only (named barrier 1)
 template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" :: "n"(N) : "memory");
 }
 
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
+// wgmma shared-memory descriptor for a 128-byte-swizzled tile: start
+// address, leading and stride byte offsets (in 16-byte units), layout 1
+// (128-byte swizzle) in bits 62-63
+__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((smem_addr(p) & 0x3FFFF) >> 4)
+         | static_cast<uint64_t>(lbo) << 16
+         | static_cast<uint64_t>(sbo) << 32
+         | 1ull << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// wait until at most N committed wgmma groups are in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+// keep the compiler from moving accumulator accesses across wgmma
+__device__ __forceinline__ void fence_acc(float* d) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// d (64 x 128 fp32, this thread's 64 values) += A (64 x 16, K-major, from
+// desc_a) * B (16 x 128, N-major: the transpose bit, from desc_b)
+__device__ __forceinline__ void wgmma_m64n128k16(float* d, uint64_t desc_a,
+                                                 uint64_t desc_b) {
   asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// d += a (16x16, row) * b (16x8, col); bf16 in, fp32 accumulate
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__global__ void __launch_bounds__(THREADS)
-sliced_matmul_kernel(const __nv_bfloat16* __restrict__ x,
-                     const __nv_bfloat16* __restrict__ w,
-                     __nv_bfloat16* __restrict__ y,
-                     int M, int N, int seg, int nseg,
-                     long long xs, long long ws, long long ys,
+template <int BM>
+__global__ void __launch_bounds__(Tiles<BM>::THREADS, 1)
+sliced_matmul_kernel(const __grid_constant__ CUtensorMap tmx,
+                     const __grid_constant__ CUtensorMap tmw,
+                     __nv_bfloat16* __restrict__ y, int M, int N, int seg,
+                     int nseg, long long ys,
                      const int* __restrict__ ai_ptr, int ai_static,
-                     const int* __restrict__ ao_ptr, int ao_static) {
-  __shared__ __align__(16) unsigned char smem_raw[sizeof(SlicedSmem)];
-  SlicedSmem& sm = *reinterpret_cast<SlicedSmem*>(smem_raw);
+                     const int* __restrict__ ao_ptr, int ao_static,
+                     float* __restrict__ part, int* __restrict__ counters) {
+  using TL = Tiles<BM>;
+  constexpr int NC = TL::CONSUMERS;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ unsigned long long best;
+  __shared__ int last;
+  // stage st: BM rows of x (128 bytes each), then the two 64-column boxes
+  // of w (BK rows of 128 bytes each), 1024-byte aligned for the swizzle
+  unsigned char* ring = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  float* stg = reinterpret_cast<float*>(ring + STAGES * TL::STAGE_BYTES);
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      ring + STAGES * TL::STAGE_BYTES + TL::STG_BYTES);
+  uint64_t* empty = full + STAGES;
+  constexpr int LD = BN + 8;                  // staging row, in floats
+  constexpr int CH = BN / 8;                  // 8-column chunks of a row
+  constexpr int KCH = BM * CH / NC;           // chunks of a tile per thread
 
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int n0 = blockIdx.x * BN;
-  const int m0 = blockIdx.y * BM;
-
   int ai = ai_ptr != nullptr ? *ai_ptr : ai_static;
   int ao = ao_ptr != nullptr ? *ao_ptr : ao_static;
   ai = max(0, min(ai, seg));
   ao = max(0, min(ao, N));
+  const Plan p = make_plan(&best, M, N, nseg, ai, ao, gridDim.x, BM);
+  if (tid == 0) {
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], NC);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  if (n0 >= ao) {              // inactive column tile: zeros, no loads
-    for (int i = tid; i < BM * (BN / 8); i += THREADS) {
+  if (tid >= NC) {
+    // the producer warp: one thread walks this block's units and keeps
+    // the ring full
+    if (tid == NC) {
+      int stage = 0, phase = 0;
+      for (int u = blockIdx.x; u < p.U; u += gridDim.x) {
+        int t, split, n;
+        p.unit(u, t, split, n);
+        const int m0 = (t % p.mt) * BM, n0 = (t / p.mt) * BN;
+        const int j1 = (split + 1) * p.T / n;
+        for (int j = split * p.T / n; j < j1; ++j) {
+          const int s = j / p.kl;
+          const int k0 = s * seg + (j - s * p.kl) * BK;
+          mbar_wait(&empty[stage], phase ^ 1);
+          unsigned char* st = ring + stage * TL::STAGE_BYTES;
+          mbar_expect_tx(&full[stage], TL::STAGE_BYTES);
+          tma_load(st, &tmx, &full[stage], k0, m0);
+          tma_load(st + TL::X_BYTES, &tmw, &full[stage], n0, k0);
+          tma_load(st + TL::X_BYTES + BK * WBOX * 2, &tmw, &full[stage],
+                   n0 + WBOX, k0);
+          if (++stage == STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: dead tiles first (stores only, while the ring fills)
+  for (int d = blockIdx.x; d < p.n_dead; d += gridDim.x) {
+    const int m0 = (d % p.mt) * BM, n0 = (p.nl + d / p.mt) * BN;
+    for (int i = tid; i < BM * (BN / 8); i += NC) {
       const int r = m0 + i / (BN / 8);
       const int c = n0 + (i % (BN / 8)) * 8;
       if (r < M && c < N)
         *reinterpret_cast<uint4*>(y + r * ys + c) = make_uint4(0, 0, 0, 0);
     }
-    return;
   }
 
-  const int kt_seg = (ai + BK - 1) / BK;     // live K tiles per segment
-  const int T = kt_seg * nseg;
-
-  // stage the K tile t (segment t / kt_seg) into ring slot `slot`
-  auto load = [&](int slot, int t) {
-    const int s = t / kt_seg;
-    const int kb = (t - s * kt_seg) * BK;    // offset inside the segment
-    const long long k0 = static_cast<long long>(s) * seg + kb;
+  const int wg = tid >> 7, lane = tid & 31;
+  // this thread's accumulator rows (+ 8) and columns (+ 8 i) in the tile
+  const int r0 = wg * 64 + ((tid & 127) >> 5) * 16 + (lane >> 2);
+  const int c0 = 2 * (lane & 3);
+  float acc[64];
+  int stage = 0, phase = 0, prev = 0;
+  for (int u = blockIdx.x; u < p.U; u += gridDim.x) {
+    // unit u: K tiles [j0, j1) of live tile t, split `split` of n
+    int t, split, n;
+    p.unit(u, t, split, n);
+    const int m0 = (t % p.mt) * BM, n0 = (t / p.mt) * BN;
+    const int j0 = split * p.T / n, j1 = (split + 1) * p.T / n;
+    // a fresh accumulator: the last tile's is dead once staged, which
+    // leaves the epilogue its registers
 #pragma unroll
-    for (int i = tid; i < BM * (BK / 8); i += THREADS) {
-      const int r = i / (BK / 8), ch = i % (BK / 8);
-      // a chunk straddling active_in meets zero rows of w below
-      const bool ok = m0 + r < M && kb + ch * 8 < ai;
-      cp_async16(&sm.x[slot][r][ch * 8],
-                 ok ? x + (m0 + r) * xs + k0 + ch * 8 : x, ok);
-    }
-#pragma unroll
-    for (int i = tid; i < BK * (BN / 8); i += THREADS) {
-      const int r = i / (BN / 8), ch = i % (BN / 8);
-      const bool ok = kb + r < ai && n0 + ch * 8 < N;
-      cp_async16(&sm.w[slot][r][ch * 8],
-                 ok ? w + (k0 + r) * ws + n0 + ch * 8 : w, ok);
-    }
-  };
-
-  const int wm = (warp >> 1) * 32;
-  const int wn = (warp & 1) * 32;
-  const bool live = m0 + wm < M;             // warp-uniform
-  float acc[2][4][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-      acc[mi][ni][0] = acc[mi][ni][1] = acc[mi][ni][2] = acc[mi][ni][3] = 0.f;
-
-#pragma unroll
-  for (int st = 0; st < STAGES - 1; ++st) {
-    if (st < T) load(st, st);
-    cp_async_commit();
-  }
-  for (int t = 0; t < T; ++t) {
-    cp_async_wait<STAGES - 2>();             // tile t has landed
-    __syncthreads();                         // and slot t-1 is consumed
-    if (t + STAGES - 1 < T) load((t + STAGES - 1) % STAGES, t + STAGES - 1);
-    cp_async_commit();
-    if (!live) continue;
-    const int slot = t % STAGES;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      uint32_t a[2][4], b[4][2];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-        ldsm_x4(a[mi], &sm.x[slot][wm + mi * 16 + (lane & 15)]
-                                   [kk + (lane >> 4) * 8]);
-#pragma unroll
-      for (int nj = 0; nj < 2; ++nj) {
-        uint32_t r[4];
-        ldsm_x4_trans(r, &sm.w[slot][kk + (lane & 7) + ((lane >> 3) & 1) * 8]
-                                    [wn + nj * 16 + (lane >> 4) * 8]);
-        b[2 * nj][0] = r[0];
-        b[2 * nj][1] = r[1];
-        b[2 * nj + 1][0] = r[2];
-        b[2 * nj + 1][1] = r[3];
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    for (int j = j0; j < j1; ++j) {
+      const int kb = (j % p.kl) * BK;         // offset inside the segment
+      const int live = min(BK, ai - kb);      // live rows of w in this tile
+      mbar_wait(&full[stage], phase);
+      unsigned char* xt = ring + stage * TL::STAGE_BYTES;
+      unsigned char* wt = xt + TL::X_BYTES;
+      if (live < BK) {
+        // w rows at and past active_in: zero, whole 128-byte lines
+        const int chunks = (BK - live) * 8;
+        for (int i = tid; i < 2 * chunks; i += NC)
+          *reinterpret_cast<uint4*>(wt + (i / chunks) * BK * 128 + live * 128
+                                    + (i % chunks) * 16) = make_uint4(0, 0, 0, 0);
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        consumers_sync<NC>();
       }
+      fence_acc(acc);
+      wgmma_fence();
 #pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
-          mma_bf16(acc[mi][ni], a[mi], b[ni][0], b[ni][1]);
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        // A: 64 rows of 128 bytes, 8-row groups 1024 bytes apart; a 16-deep
+        // step is 32 bytes along the row. B: 16 rows of 128 bytes per step,
+        // the second 64-column box BK * 128 bytes on
+        const uint64_t da = smem_desc(xt + wg * 64 * 128 + kk * 32, 1, 64);
+        const uint64_t db = smem_desc(wt + kk * 16 * 128, BK * 128 / 16, 64);
+        wgmma_m64n128k16(acc, da, db);
+      }
+      wgmma_commit();
+      // one group stays in flight: the previous stage's is done, so its
+      // buffer goes back to the producer
+      wgmma_wait<1>();
+      fence_acc(acc);
+      if (j > j0) mbar_arrive(&empty[prev]);
+      prev = stage;
+      if (++stage == STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
     }
-  }
-  cp_async_wait<0>();
+    wgmma_wait<0>();
+    fence_acc(acc);
+    mbar_arrive(&empty[prev]);
 
-  const int g = lane >> 2, tq = lane & 3;
+    // the tile through shared memory, so that global memory sees whole
+    // 16-byte chunks of 8 columns, over the tile's live rows only
+    consumers_sync<NC>();                     // the last tile's reads done
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
+    for (int i = 0; i < 16; ++i)
 #pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const int col = n0 + wn + ni * 8 + 2 * tq;
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(stg + (r0 + 8 * h) * LD + 8 * i + c0) =
+            make_float2(acc[4 * i + 2 * h], acc[4 * i + 2 * h + 1]);
+    consumers_sync<NC>();
+    const int chunks = min(BM, M - m0) * CH;
+    if (n > 1) {
+      // this split's partial to slot u; the last block on the tile sums
+      // the slots of its splits in order 0..n-1 into the staging tile
+      float* slot = part + static_cast<long long>(u) * BM * BN;
+      for (int c = tid; c < chunks; c += NC) {
+        const float4* src =
+            reinterpret_cast<const float4*>(stg + (c / CH) * LD + (c % CH) * 8);
+        float4* dst = reinterpret_cast<float4*>(slot + c * 8);
+        dst[0] = src[0];
+        dst[1] = src[1];
+      }
+      __threadfence();
+      consumers_sync<NC>();
+      if (tid == 0) {
+        const int arrived = atomicAdd(&counters[t], 1);
+        last = arrived == n - 1;
+        if (last) counters[t] = 0;            // ready for the next launch
+      }
+      consumers_sync<NC>();
+      if (!last) continue;
+      __threadfence();
+      const float* first =
+          part + static_cast<long long>(p.first_slot(t)) * BM * BN;
+      for (int s = 0; s < n; ++s) {
+        // all of a slot's loads in flight at once; each thread adds into
+        // the staging chunks it alone touches
+        const float* src = first + static_cast<long long>(s) * BM * BN;
+        float4 q[KCH][2];
+#pragma unroll
+        for (int k = 0; k < KCH; ++k) {
+          const int c = tid + k * NC;
+          if (c < chunks) {
+            q[k][0] = __ldcg(reinterpret_cast<const float4*>(src + c * 8));
+            q[k][1] = __ldcg(reinterpret_cast<const float4*>(src + c * 8 + 4));
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < KCH; ++k) {
+          const int c = tid + k * NC;
+          if (c >= chunks) continue;
+          float4* acc4 =
+              reinterpret_cast<float4*>(stg + (c / CH) * LD + (c % CH) * 8);
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            if (s == 0) {
+              acc4[hh] = q[k][hh];
+            } else {
+              float4 a4 = acc4[hh];
+              a4.x += q[k][hh].x;
+              a4.y += q[k][hh].y;
+              a4.z += q[k][hh].z;
+              a4.w += q[k][hh].w;
+              acc4[hh] = a4;
+            }
+          }
+        }
+      }
+    }
+    // bf16 out from the staging tile, zeros past active_out
+    for (int c = tid; c < chunks; c += NC) {
+      const int col = n0 + (c % CH) * 8;
       if (col >= N) continue;
+      const float* src = stg + (c / CH) * LD + (c % CH) * 8;
+      uint32_t packed[4];
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = m0 + wm + mi * 16 + g + h * 8;
-        if (row >= M) continue;
-        const float v0 = col < ao ? acc[mi][ni][2 * h] : 0.f;
-        const float v1 = col + 1 < ao ? acc[mi][ni][2 * h + 1] : 0.f;
-        *reinterpret_cast<__nv_bfloat162*>(y + row * ys + col) =
-            __floats2bfloat162_rn(v0, v1);
+      for (int e = 0; e < 4; ++e) {
+        const __nv_bfloat162 b2 = __floats2bfloat162_rn(
+            col + 2 * e < ao ? src[2 * e] : 0.f,
+            col + 2 * e + 1 < ao ? src[2 * e + 1] : 0.f);
+        packed[e] = *reinterpret_cast<const uint32_t*>(&b2);
       }
+      *reinterpret_cast<uint4*>(y + (m0 + c / CH) * ys + col) =
+          make_uint4(packed[0], packed[1], packed[2], packed[3]);
     }
   }
 }
 
+// -------------------------------------------------------------------------
+// host side: tensor maps and the launch
+// -------------------------------------------------------------------------
+
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled (a libcuda entry point), fetched once through the
+// runtime's entry-point query, so nothing links against libcuda
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = []() -> EncodeTiled {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+    if (err != cudaSuccess || q != cudaDriverEntryPointSuccess) return nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// a (rows, cols) bf16 matrix of row stride `stride` elements, read in
+// boxes of box_rows x 64 columns (128 bytes) with the 128-byte swizzle;
+// what lies outside the matrix loads as zeros
+bool encode(CUtensorMap* map, const void* base, long long rows,
+            long long cols, long long stride, int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(stride) * 2};
+  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// weight maps by (pointer, rows, columns, stride): the weights live for
+// the model's life, so each is encoded once
+std::mutex weight_maps_mu;
+std::map<std::tuple<const void*, int, int, long long>, CUtensorMap> weight_maps;
+constexpr size_t WEIGHT_MAPS_MAX = 4096;
+
+bool weight_map(CUtensorMap* map, const void* w, int K, int N, long long ws) {
+  const auto key = std::make_tuple(w, K, N, ws);
+  std::lock_guard<std::mutex> lock(weight_maps_mu);
+  const auto it = weight_maps.find(key);
+  if (it != weight_maps.end()) {
+    *map = it->second;
+    return true;
+  }
+  if (!encode(map, w, K, N, ws, BK)) return false;
+  if (weight_maps.size() >= WEIGHT_MAPS_MAX) weight_maps.clear();
+  weight_maps.emplace(key, *map);
+  return true;
+}
+
+template <int BM>
+int launch(const CUtensorMap& tmx, const CUtensorMap& tmw, void* y, int M,
+           int N, int seg, int nseg, long long ys, const void* ai_ptr,
+           int ai_static, const void* ao_ptr, int ao_static, void* part,
+           void* counters, int grid, cudaStream_t stream) {
+  // dynamic shared memory above 48 KB, allowed once per device
+  static uint64_t ready = 0;
+  static std::mutex mu;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    if (!(ready >> dev & 1)) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          sliced_matmul_kernel<BM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          Tiles<BM>::SMEM);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      ready |= 1ull << dev;
+    }
+  }
+  sliced_matmul_kernel<BM><<<grid, Tiles<BM>::THREADS, Tiles<BM>::SMEM,
+                             stream>>>(
+      tmx, tmw, static_cast<__nv_bfloat16*>(y), M, N, seg, nseg, ys,
+      static_cast<const int*>(ai_ptr), ai_static,
+      static_cast<const int*>(ao_ptr), ao_static, static_cast<float*>(part),
+      static_cast<int*>(counters));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// output rows of one block tile: one warpgroup's 64 up to M = 128, two
+// warpgroups' 128 beyond
+int block_rows(int M) { return M <= 128 ? 64 : 128; }
+
+// the scratch one launch may touch: WS_TILES fp32 tiles per block, and one
+// arrival counter per live tile that may be split. A tile is split either
+// when S > 1, and then L * S <= WS_TILES * grid gives L <= WS_TILES * grid
+// / 2, or when the spare blocks of one round split it, and then L < grid.
+long long workspace_elems(int M, int grid) {
+  return static_cast<long long>(WS_TILES) * grid * block_rows(M) * BN;
+}
+long long workspace_counters(int grid) {
+  return grid > WS_TILES * grid / 2 ? grid : WS_TILES * grid / 2;
+}
+
 }  // namespace
+
+// The scratch of an M-row launch on `grid` blocks: `part_elems` fp32
+// elements and `n_counters` int32 counters, zero before the first launch
+// (every launch leaves them zero). The wrapper sizes its buffers from this
+// alone. Returns 0.
+extern "C" int repro_sliced_matmul_workspace(int M, int grid,
+                                             long long* part_elems,
+                                             long long* n_counters) {
+  *part_elems = workspace_elems(M, grid);
+  *n_counters = workspace_counters(grid);
+  return 0;
+}
 
 // x: (M, K) rows of stride xs; w: (K, N) rows of stride ws; y: (M, N) rows
 // of stride ys; strides in elements, rows 16-byte aligned (checked by the
 // Python wrapper). K is cut into nseg segments of K / nseg columns. Each
-// width pointer may be null, then its static value is used. Returns the
-// CUDA error code of the launch (0 = launched).
+// width pointer may be null, then its static value is used. `part` holds
+// `part_elems` fp32 elements and `counters` `n_counters` int32 zeros (left
+// zero by every launch); a launch whose scratch is smaller than
+// repro_sliced_matmul_workspace asks for is refused. `grid` blocks are
+// launched whatever the widths. Returns the CUDA error code of the launch
+// (0 = launched).
 extern "C" int repro_sliced_matmul_bf16(
     const void* x, const void* w, void* y, int M, int N, int K, int nseg,
     long long xs, long long ws, long long ys,
     const void* ai_ptr, int ai_static, const void* ao_ptr, int ao_static,
-    void* stream) {
+    void* part, long long part_elems, void* counters, long long n_counters,
+    int grid, void* stream) {
   if (M <= 0 || N <= 0) return 0;
   if (nseg <= 0 || K % nseg != 0 || (K / nseg) % 8 != 0 || N % 8 != 0 ||
-      xs % 8 != 0 || ws % 8 != 0 || ys % 8 != 0)
+      xs % 8 != 0 || ws % 8 != 0 || ys % 8 != 0 || grid <= 0 ||
+      part_elems < workspace_elems(M, grid) ||
+      n_counters < workspace_counters(grid))
     return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  sliced_matmul_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
-      static_cast<__nv_bfloat16*>(y), M, N, K / nseg, nseg, xs, ws, ys,
-      static_cast<const int*>(ai_ptr), ai_static,
-      static_cast<const int*>(ao_ptr), ao_static);
-  return static_cast<int>(cudaGetLastError());
+  const int bm = block_rows(M);
+  CUtensorMap tmx, tmw;
+  if (!encode(&tmx, x, M, K, xs, bm) || !weight_map(&tmw, w, K, N, ws))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto s = static_cast<cudaStream_t>(stream);
+  return bm == 64
+      ? launch<64>(tmx, tmw, y, M, N, K / nseg, nseg, ys, ai_ptr, ai_static,
+                   ao_ptr, ao_static, part, counters, grid, s)
+      : launch<128>(tmx, tmw, y, M, N, K / nseg, nseg, ys, ai_ptr,
+                    ai_static, ao_ptr, ao_static, part, counters, grid, s);
 }

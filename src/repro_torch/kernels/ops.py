@@ -46,8 +46,8 @@ def _decode_torch(q, k_cache, v_cache, index, *, window, kv_block):
 
 @register("sliced_matmul", "cuda")
 def _sliced_cuda(x, w, active_in, active_out, *, segments, bm, bk, bn):
-    # tile sizes are fixed by the kernel (64 x 64 x 32); the block
-    # arguments are kept for the JAX entry point's signature
+    # tile sizes are fixed by the kernel (64 or 128 rows x 128 x 64); the
+    # block arguments are kept for the JAX entry point's signature
     return _sliced.sliced_matmul(x, w, active_in, active_out,
                                  segments=segments)
 

@@ -6,17 +6,29 @@ GPU-Pallas twin in ``repro/kernels/triton_kernels.py``:
 ``y = x[:, :active_in] @ w[:active_in, :active_out]`` with zeros past
 ``active_out``, bf16 in, fp32 accumulation, bf16 out. The widths are data:
 ints, or int32 CUDA tensors of one element that the kernel reads from
-device memory, so one launch serves every subnet. K tiles past
-``active_in`` are neither loaded nor computed, and a column tile past
-``active_out`` only writes zeros.
+device memory, so one launch serves every subnet.
 
 ``segments`` cuts K into equal segments, each with its own active prefix
 of ``active_in`` (the GQA output projection, one segment per KV head).
 
-What bounds it on the H100: at serving shapes (M <= 128 rows against the
-1536 x 8960 FFN weights) the bytes of the active weight block. Tiles of
-64 x 64 on ``mma.sync`` tensor cores, a four-stage ``cp.async`` ring, no
-TMA, ``wgmma`` or split-K yet.
+What bounds it on the H100: the bytes of the active weight block at the
+serving shapes (M <= 128 rows against the 1536 x 8960 FFN weights), the
+tensor cores' operations at M = 2048 and beyond. The TPU kernel walks K
+on a sequential grid axis into an accumulator; here the grid is one block
+per SM, a static fact, and every block works out its share of the live
+work on the card, from the widths it reads: the live output tiles times
+the live K tiles of every segment, each tile cut into ``splits`` K ranges
+so that the busiest block has the fewest K steps, counting each split's
+fp32 partial as SPLIT_COST steps (as measured on the H100); a narrow
+subnet, with fewer live tiles, takes more splits. A tile of one split is
+written in bf16 directly; the splits of a tile write fp32 partials to a
+workspace, and the last block to arrive on the tile (an integer counter
+per tile) sums them in split order and writes bf16: no float atomics, so
+the bits repeat from launch to launch. :func:`split_plan` is that
+schedule written once in Python, the spec the CPU tests hold it to; the
+wrapper does not call it (nothing on the host depends on a width). The
+main loop is a TMA ring filled by one producer warp and drained by
+``wgmma`` warpgroups (``csrc/sliced_matmul.cu`` has the design).
 
 The wrapper takes 2-d operands with any row stride that keeps rows 16-byte
 aligned, so per-group views need no copy; ``x`` of more dimensions is
@@ -25,18 +37,47 @@ flattened to rows.
 from __future__ import annotations
 
 import ctypes
+import functools
+import threading
+from dataclasses import dataclass
+from typing import Iterator, Tuple
 
 import torch
 
 from repro_torch import compat
 from repro_torch.kernels import build
+from repro_torch.kernels.decode_attention import _sm_count
 
 NAME = "sliced_matmul"
 _C = "repro_sliced_matmul_bf16"
 _ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
              + [ctypes.c_longlong] * 3
-             + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                ctypes.c_void_p])
+             + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
+             + [ctypes.c_void_p, ctypes.c_longlong] * 2
+             + [ctypes.c_int, ctypes.c_void_p])
+_C_WORKSPACE = "repro_sliced_matmul_workspace"
+_WORKSPACE_ARGTYPES = [ctypes.c_int, ctypes.c_int,
+                       ctypes.POINTER(ctypes.c_longlong),
+                       ctypes.POINTER(ctypes.c_longlong)]
+
+# the kernel's plan, mirrored by split_plan (csrc/sliced_matmul.cu): BN
+# output columns and BK deep K steps per block tile, block_rows(M) output
+# rows; CTAS_PER_SM blocks of the grid per SM; at most WORKSPACE_TILES fp32
+# partials per block; a split's partial costs about SPLIT_COST K steps.
+# The scratch a launch needs is the kernel's to say (_workspace_size).
+BN = 128
+BK = 64
+CTAS_PER_SM = 1
+WORKSPACE_TILES = 1
+SPLIT_COST = 4
+
+
+def block_rows(M: int) -> int:
+    """Output rows of one block tile for an M-row product: one warpgroup's
+    64 up to M = 128 (where the weight bytes bound the product, and 64-row
+    tiles double the output tiles that share the K steps), two
+    warpgroups' 128 beyond."""
+    return 64 if M <= 128 else 128
 
 
 def sliced_matmul_plain(x, w, active_in, active_out, *, segments: int = 1):
@@ -52,6 +93,173 @@ def sliced_matmul_plain(x, w, active_in, active_out, *, segments: int = 1):
     if active_out is not None:
         y = y * (torch.arange(N, device=x.device) < active_out).to(y.dtype)
     return y.to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# the schedule (mirror of the kernel's plan; a spec, not on the path)
+# --------------------------------------------------------------------------
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def choose_splits(live_tiles: int, k_tiles: int, grid: int) -> int:
+    """K splits per live tile: the S that minimises the K steps of the
+    busiest block, ``ceil(L * S / grid) * ceil(T / S)``, plus
+    ``SPLIT_COST * S`` for the fp32 partials of a split tile (each written
+    and read back at a cost the H100 measured at about SPLIT_COST K steps);
+    the smallest S of equal cost. The workspace bounds S:
+    ``L * S <= WORKSPACE_TILES * grid``."""
+    if live_tiles == 0 or k_tiles == 0:
+        return 1
+    best, best_s = _cdiv(live_tiles, grid) * k_tiles, 1
+    top = min(k_tiles, WORKSPACE_TILES * grid // live_tiles)
+    for s in range(2, top + 1):
+        cost = (_cdiv(live_tiles * s, grid) * _cdiv(k_tiles, s)
+                + SPLIT_COST * s)
+        if cost < best:
+            best, best_s = cost, s
+    return best_s
+
+
+@dataclass(frozen=True)
+class SplitPlan:
+    """The kernel's division of one product among ``grid`` blocks.
+
+    Live tile t has ``splits + 1`` K splits for t < ``extra`` and
+    ``splits`` after: when the plan fits in one round (L * S < grid), the
+    spare blocks each take one more split of a tile. Unit u, a (tile,
+    split) pair numbered tile by tile, goes to block u mod grid and owns
+    workspace slot u; the splits of a tile are summed in split order."""
+    grid: int
+    bm: int               # rows of a block tile: block_rows(M)
+    m_tiles: int
+    n_tiles: int
+    live_n_tiles: int     # column tiles that start below active_out
+    k_tiles: int          # live K tiles, all segments: T
+    k_tiles_per_seg: int
+    splits: int           # S
+    extra: int            # tiles with S + 1 splits
+    seg: int
+    active_in: int
+
+    @property
+    def live_tiles(self) -> int:
+        return self.m_tiles * self.live_n_tiles
+
+    @property
+    def units(self) -> int:
+        return self.live_tiles * self.splits + self.extra
+
+    @property
+    def dead_tiles(self) -> int:
+        return self.m_tiles * (self.n_tiles - self.live_n_tiles)
+
+    def tile(self, t: int) -> Tuple[int, int]:
+        """(m tile, n tile) of live tile t; rows vary fastest, so the
+        blocks of one weight column tile run side by side."""
+        return t % self.m_tiles, t // self.m_tiles
+
+    def unit(self, u: int) -> Tuple[int, int, int]:
+        """(live tile, split, splits of that tile) of unit u."""
+        S, e = self.splits, self.extra
+        if u < e * (S + 1):
+            return u // (S + 1), u % (S + 1), S + 1
+        v = u - e * (S + 1)
+        return e + v // S, v % S, S
+
+    def first_slot(self, t: int) -> int:
+        """Workspace slot (= unit) of split 0 of live tile t."""
+        S, e = self.splits, self.extra
+        return t * (S + 1) if t < e else e * (S + 1) + (t - e) * S
+
+    def k_range(self, split: int, n: int) -> Tuple[int, int]:
+        """[j0, j1): the live K tiles of split ``split`` of ``n``, in
+        segment order."""
+        T = self.k_tiles
+        return split * T // n, (split + 1) * T // n
+
+    def k_row(self, j: int) -> Tuple[int, int]:
+        """(first row of w, live rows) of live K tile j."""
+        s, i = divmod(j, self.k_tiles_per_seg)
+        kb = i * BK
+        return s * self.seg + kb, min(BK, self.active_in - kb)
+
+    def units_of(self, cta: int) -> Iterator[Tuple[int, int, int]]:
+        """(tile, split, splits) of each unit block ``cta`` computes, in
+        order."""
+        for u in range(cta, self.units, self.grid):
+            yield self.unit(u)
+
+    def dead_of(self, cta: int) -> Iterator[Tuple[int, int]]:
+        """(m tile, n tile) of each dead tile block ``cta`` zero-writes."""
+        for d in range(cta, self.dead_tiles, self.grid):
+            yield d % self.m_tiles, self.live_n_tiles + d // self.m_tiles
+
+
+def split_plan(M: int, N: int, K: int, segments: int, active_in, active_out,
+               grid: int) -> SplitPlan:
+    """The schedule the kernel computes on the card, from the shapes, the
+    widths (None: full) and the grid size alone."""
+    seg = K // segments
+    ai = seg if active_in is None else min(max(int(active_in), 0), seg)
+    ao = N if active_out is None else min(max(int(active_out), 0), N)
+    bm = block_rows(M)
+    kl = _cdiv(ai, BK)
+    T = kl * segments
+    nl = _cdiv(ao, BN) if T else 0
+    mt = _cdiv(M, bm)
+    L = mt * nl
+    S = choose_splits(L, T, grid)
+    extra = min(L, grid - L * S) if L * S < grid and S < T else 0
+    return SplitPlan(grid=grid, bm=bm, m_tiles=mt, n_tiles=_cdiv(N, BN), live_n_tiles=nl, k_tiles=T,
+                     k_tiles_per_seg=kl, splits=S, extra=extra, seg=seg,
+                     active_in=ai)
+
+
+def grid_size(device: torch.device) -> int:
+    """Blocks of every launch on ``device``: a static fact of the card."""
+    return CTAS_PER_SM * _sm_count(device)
+
+
+# --------------------------------------------------------------------------
+# the wrapper
+# --------------------------------------------------------------------------
+
+_scratch_lock = threading.Lock()
+_scratch = {}
+
+
+@functools.lru_cache(maxsize=256)
+def _workspace_size(M: int, grid: int) -> Tuple[int, int]:
+    """(fp32 elements, int32 counters) of the scratch of an M-row launch on
+    ``grid`` blocks, as the kernel's own source decides them."""
+    elems, counters = ctypes.c_longlong(), ctypes.c_longlong()
+    build.check(NAME, build.function(_C_WORKSPACE, _WORKSPACE_ARGTYPES)(
+        M, grid, ctypes.byref(elems), ctypes.byref(counters)))
+    return elems.value, counters.value
+
+
+def _scratch_for(device: torch.device, stream: int, M: int, grid: int):
+    """(workspace, counters) of launches on one stream, at least the size
+    the kernel asks for; the counters are zero between launches because
+    the last block on a tile resets its own. Sized from static facts only
+    and grown, never shrunk; launches on one stream run in order, so they
+    may share them."""
+    elems, n_counters = _workspace_size(M, grid)
+    key = (device, stream)
+    with _scratch_lock:
+        got = _scratch.get(key)
+        if got is None or got[0].numel() < elems \
+                or got[1].numel() < n_counters:
+            if got is not None:
+                elems = max(elems, got[0].numel())
+                n_counters = max(n_counters, got[1].numel())
+            got = (torch.empty(elems, dtype=torch.float32, device=device),
+                   torch.zeros(n_counters, dtype=torch.int32, device=device))
+            _scratch[key] = got
+        return got
 
 
 def _width(name: str, val, full: int, device):
@@ -98,11 +306,23 @@ def sliced_matmul(x, w, active_in, active_out, *, segments: int = 1):
         return y.reshape(*lead, N)
     ai_ptr, ai = _width("active_in", active_in, K // segments, x.device)
     ao_ptr, ao = _width("active_out", active_out, N, x.device)
-    fn = build.function(_C, _ARGTYPES)
+    grid = grid_size(x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = fn(x2.data_ptr(), w.data_ptr(), y.data_ptr(), M, N, K, segments,
-             x2.stride(0), w.stride(0), y.stride(0), ai_ptr, ai, ao_ptr, ao,
-             stream)
-    build.check(NAME, err)
+    part, counters = _scratch_for(x.device, stream, M, grid)
+    build.check(NAME, _launch(x2, w, y, segments, ai_ptr, ai, ao_ptr, ao,
+                              part, counters, grid, stream))
     compat.note_launch(NAME)
     return y.reshape(*lead, N)
+
+
+def _launch(x2, w, y, segments, ai_ptr, ai, ao_ptr, ao, part, counters,
+            grid, stream) -> int:
+    """One launch of the C entry point; its CUDA error code (0: launched).
+    The kernel refuses scratch smaller than it needs."""
+    M, K = x2.shape
+    N = w.shape[1]
+    return build.function(_C, _ARGTYPES)(
+        x2.data_ptr(), w.data_ptr(), y.data_ptr(), M, N, K, segments,
+        x2.stride(0), w.stride(0), y.stride(0), ai_ptr, ai, ao_ptr, ao,
+        part.data_ptr(), part.numel(), counters.data_ptr(), counters.numel(),
+        grid, stream)

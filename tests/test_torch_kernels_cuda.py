@@ -124,6 +124,109 @@ def test_sliced_matmul_kernel_takes_strided_segments(cuda):
                 sm.sliced_matmul_plain(og, wg, act, None).float(), **TOL)
 
 
+def test_sliced_matmul_kernel_over_row_counts(cuda):
+    """Every row count the schedule treats apart: one block tile of 64 rows
+    or more, a ragged last tile, and a prefill of 2048 rows, at FFN widths
+    cut to a narrow subnet."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    for M in (1, 7, 8, 64, 128, 129, 2048):
+        for K, N, ai, ao in ((1536, 8960, None, 4480),
+                             (8960, 1536, 6656, None)):
+            x, w = _randn(gen, M, K, dev=cuda), _randn(gen, K, N, dev=cuda)
+            a = None if ai is None else _i32(ai, cuda)
+            b = None if ao is None else _i32(ao, cuda)
+            got = sm.sliced_matmul(x, w, a, b)
+            torch.testing.assert_close(
+                got.float(), sm.sliced_matmul_plain(x, w, a, b).float(), **TOL)
+            if ao is not None:
+                assert not got[:, ao:].any()
+
+
+def test_sliced_matmul_kernel_repeats_its_bits(cuda):
+    """The same widths give the same bits, launch after launch, whatever
+    widths the launches between used: sums run in a fixed order."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    for M, K, N, nseg in ((8, 8960, 1536, 1), (128, 1536, 8960, 1),
+                          (128, 1536, 1536, 2)):
+        x, w = _randn(gen, M, K, dev=cuda), _randn(gen, K, N, dev=cuda)
+        ai, ao = _i32(K // nseg, cuda), _i32(N, cuda)
+        first = sm.sliced_matmul(x, w, ai, ao, segments=nseg)
+        for width in (K // nseg // 2, 40, K // nseg):
+            ai.fill_(width)
+            ao.fill_(N // 2 if width != K // nseg else N)
+            sm.sliced_matmul(x, w, ai, ao, segments=nseg)
+        again = sm.sliced_matmul(x, w, ai, ao, segments=nseg)
+        assert torch.equal(first, again)
+
+
+def test_sliced_matmul_kernel_splits_segments(cuda):
+    """Segments whose live K tiles are shared among several splits of one
+    output tile: few live tiles (N = 128) against long segments."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    x = _randn(gen, 16, 4 * 2048, dev=cuda)
+    w = _randn(gen, 4 * 2048, 128, dev=cuda)
+    plan = sm.split_plan(16, 128, 4 * 2048, 4, 1000, None,
+                         sm.grid_size(cuda))
+    assert plan.splits > 1
+    for ai in (2048, 1000, 64, 1):
+        a = _i32(ai, cuda)
+        torch.testing.assert_close(
+            sm.sliced_matmul(x, w, a, None, segments=4).float(),
+            sm.sliced_matmul_plain(x, w, a, None, segments=4).float(), **TOL)
+
+
+def test_sliced_matmul_kernel_refuses_short_scratch(cuda):
+    """The kernel decides its scratch: the size it reports covers the
+    plan's units and counters, and a launch handed less is refused before
+    anything runs."""
+    grid = sm.grid_size(cuda)
+    x = torch.ones((128, 1536), dtype=torch.bfloat16, device=cuda)
+    w = torch.ones((1536, 1536), dtype=torch.bfloat16, device=cuda)
+    for M in (1, 128, 129, 2048):
+        elems, counters = sm._workspace_size(M, grid)
+        assert elems >= sm.WORKSPACE_TILES * grid * sm.block_rows(M) * sm.BN
+        assert counters >= grid
+    elems, counters = sm._workspace_size(128, grid)
+    y = torch.full((128, 1536), 7.0, dtype=torch.bfloat16, device=cuda)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    for n_part, n_count in ((elems - 1, counters), (elems, counters - 1)):
+        part = torch.empty(n_part, dtype=torch.float32, device=cuda)
+        cnt = torch.zeros(n_count, dtype=torch.int32, device=cuda)
+        assert sm._launch(x, w, y, 1, None, 1536, None, 1536, part, cnt,
+                          grid, stream) != 0
+    torch.cuda.synchronize()
+    assert (y == 7.0).all()
+    part = torch.empty(elems, dtype=torch.float32, device=cuda)
+    cnt = torch.zeros(counters, dtype=torch.int32, device=cuda)
+    assert sm._launch(x, w, y, 1, None, 1536, None, 1536, part, cnt,
+                      grid, stream) == 0
+    torch.testing.assert_close(y.float(), torch.full_like(y.float(), 1536.0))
+
+
+def test_switch_prefill_makes_no_host_sync(cuda):
+    """A warmed switch-mode forward reads every width on the card: under
+    sync-debug "error" any host sync (a width read back, .item(), a copy
+    to the host) raises."""
+    from repro_torch.models import lm
+    from repro_torch.serving.executor import ExecutorConfig, build_executor
+    ex = build_executor(_small_cfg(), seed=0, device=cuda,
+                        exec_cfg=ExecutorConfig(batch_buckets=(2,),
+                                                seq_buckets=(16,),
+                                                slice_mode="switch"))
+    ex.warmup(batches=(2,), seqs=(16,))
+    tok = torch.ones((2, 16), dtype=torch.long, device=cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.no_grad():
+            for idx in range(ex.n_subnets):
+                lm.hidden_states(ex.params, ex.cfg, {"tokens": tok},
+                                 ex._ctrl(idx), slice_mode="switch")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
 # --------------------------------------------------------------------------
 # the model and the executor on the card, against the plain path on the CPU
 # --------------------------------------------------------------------------

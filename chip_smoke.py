@@ -15,10 +15,17 @@ Phases, one result line each:
    kernel, plain and library (``scaled_dot_product_attention`` /
    ``rms_norm`` / ``torch.matmul`` on the active block, timed as a
    yardstick only) times, and the bound: the larger of bytes over the
-   card's memory rate and FLOPs over its peak. ``sliced_matmul`` is timed
+   card's memory rate and FLOPs over its peak. ``flash_attention`` runs
+   every case of the card tests (ragged prompts, a window, ``kv_len`` and
+   the head width read on the card, (B, S, H, d) views) with two launches
+   bitwise equal and inactive heads exactly 0, then device ms at S = 16,
+   256 and 2048 at full and half head width against SDPA and the bound,
+   and the wrapper's host us at S = 16. ``sliced_matmul`` is timed
    over weight copies that exceed the L2 cache, as each layer finds its
    weights cold, its columns past ``active_out`` must be exactly 0, and
-   two launches must give the same bits.
+   two launches must give the same bits; the bits of fixed cases must
+   equal those recorded before its PTX helpers moved to
+   ``csrc/hopper.cuh`` (on a card with the recorded SM count).
 3. Serve: ``repro_torch.launch.serve`` at the full width and depth of
    qwen2-1.5b (random weights from a seeded ``torch.Generator``), SlackFit
    through the port's Router; every query must be answered, the serve
@@ -35,7 +42,7 @@ Phases, one result line each:
    time (host wall clock, device kernel time from ``torch.profiler``, the
    device's idle share, the top kernels, the launches of each kernel),
    and a switch-mode prefill of the widest and the narrowest full-depth
-   subnet.
+   subnet, with the flash kernel's device ms in each.
 7. Reference: the full-width model cut to 2 layers, kernels in bf16 on the
    card against the plain fp32 path on the CPU, prefill and decode logits,
    in mask and in switch mode.
@@ -98,21 +105,28 @@ def time_ms(torch, fn, iters: int = 50, warmup: int = 5) -> float:
 def device_ms(torch, fn, n: int = 20):
     """The device's own kernel time per call of ``fn``, from
     torch.profiler (for the small kernels the CUDA-event time of
-    :func:`time_ms` is the host's launch rate)."""
+    :func:`time_ms` is the host's launch rate). A trace holding fewer than
+    ``n`` launches of its most frequent kernel lost events and would read
+    low: it is taken again, and after three "not measured"."""
+    from collections import Counter
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    us = 0.0
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            t = getattr(ev, "self_device_time_total", None)
-            us += ev.self_cuda_time_total if t is None else t
-    return us / n / 1e3 if us > 0 else "not measured"
+    for _ in range(3):                # a trace that lost events: again
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        us, names = 0.0, Counter()
+        for ev in prof.events():
+            if ev.device_type == torch.autograd.DeviceType.CUDA:
+                t = getattr(ev, "self_device_time_total", None)
+                us += ev.self_cuda_time_total if t is None else t
+                names[ev.name] += 1
+        if us > 0 and max(names.values()) >= n:
+            return us / n / 1e3
+    return "not measured"
 
 
 class Card:
@@ -190,7 +204,6 @@ def _compare(torch, name, got, want):
 def phase_kernels(torch, card):
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as da
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import subnet_rmsnorm as rn
     gen = torch.Generator(device="cuda").manual_seed(0)
     dev = "cuda"
@@ -231,61 +244,11 @@ def phase_kernels(torch, card):
         **results["subnet_rmsnorm"])
 
     # -- flash_attention: q (B,12,S,128), k/v (B,2,S,128) ------------------
-    B, Hq, Hkv, hd = 8, 12, 2, 128
-    G = Hq // Hkv
-
-    def live_pairs(S, window, kv_len):
-        n = 0
-        for qp in range(S):
-            lo = max(0, qp - window + 1) if window else 0
-            n += max(0, min(qp + 1, kv_len) - lo)
-        return n
-
-    errs = []
-    head = None
-    for S, window, kv_len in ((16, 0, None), (256, 0, None), (200, 64, 150)):
-        q, k, v = randn(B, Hq, S, hd), randn(B, Hkv, S, hd), randn(B, Hkv, S, hd)
-        kvl = (None if kv_len is None
-               else torch.full((), kv_len, dtype=torch.int32, device=dev))
-        got = fa.flash_attention(q, k, v, causal=True, window=window,
-                                 kv_len=kvl)
-        want = fa.flash_attention_plain(q, k, v, causal=True, window=window,
-                                        kv_len=kvl)
-        err = _compare(torch, f"flash_attention S={S} window={window} "
-                              f"kv_len={kv_len}", got, want)
-        errs.append(err)
-        say("kernel-case", name="flash_attention", S=S, window=window,
-            kv_len=kv_len, max_abs_err=err)
-        if S == 256:
-            head = (S, q, k, v)
-    S, q, k, v = head
-    kx, vx = k.repeat_interleave(G, dim=1), v.repeat_interleave(G, dim=1)
-    nbytes = 2 * (q.numel() * 2 + k.numel() + v.numel())
-    flops = 4 * hd * live_pairs(S, 0, S) * B * Hq
-    bound, by = card.bound(nbytes, flops)
-    results["flash_attention"] = dict(
-        shape=[B, Hq, Hkv, S, hd], max_abs_err=max(errs),
-        ms=time_ms(torch, lambda: fa.flash_attention(q, k, v)),
-        plain_ms=time_ms(torch, lambda: fa.flash_attention_plain(q, k, v),
-                         iters=10),
-        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
-            q, kx, vx, is_causal=True)),
-        bound_ms=bound, bound_by=by,
-        device_ms=device_ms(torch, lambda: fa.flash_attention(q, k, v)),
-        library_device_ms=device_ms(
-            torch, lambda: F.scaled_dot_product_attention(q, kx, vx,
-                                                          is_causal=True)))
-    # the serving prefill's S=16, where launch latency dominates
-    q, k, v = randn(B, Hq, 16, hd), randn(B, Hkv, 16, hd), randn(B, Hkv, 16, hd)
-    kx, vx = k.repeat_interleave(G, dim=1), v.repeat_interleave(G, dim=1)
-    results["flash_attention"].update(
-        s16_device_ms=device_ms(torch, lambda: fa.flash_attention(q, k, v)),
-        s16_library_device_ms=device_ms(
-            torch, lambda: F.scaled_dot_product_attention(q, kx, vx,
-                                                          is_causal=True)))
-    say("kernel", name="flash_attention", **results["flash_attention"])
+    results["flash_attention"] = _flash_cases(torch, card, randn)
 
     # -- decode_attention: q (B,12,1,128), cache (B,2,256,128) -------------
+    B, Hq, Hkv, hd = 8, 12, 2, 128
+    G = Hq // Hkv
     Smax = 256
     q, kc, vc = randn(B, Hq, 1, hd), randn(B, Hkv, Smax, hd), randn(B, Hkv, Smax, hd)
     kcx, vcx = kc.repeat_interleave(G, dim=1), vc.repeat_interleave(G, dim=1)
@@ -324,17 +287,146 @@ def phase_kernels(torch, card):
     return results
 
 
-def host_us(torch, fn, n: int = 200) -> float:
+def _flash_cases(torch, card, randn):
+    """flash_attention at qwen2-1.5b's heads (12 over 2 kv heads, d = 128),
+    B = 8. Every case of the card tests (S = 1, 16, 63, 64, 65 with kv_len
+    40, 200 with window 64 and kv_len 150, 256; kv_len read on the card),
+    on contiguous (B, H, S, d) tensors and on views of one (B, S, 16, d)
+    projection, at each head width (None, 6 as a device tensor, 12), held
+    against the plain version; two launches must give the same bits and
+    inactive heads exactly 0. Then at S = 16, 256 and 2048 the device ms
+    at full and half head width beside SDPA's (on k/v repeated per query
+    head) and the bound, and the wrapper's host us at S = 16 (least mean of
+    5 rounds). Returns the S = 256 row (the headline)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    dev = "cuda"
+    B, Hq, Hkv, hd = 8, 12, 2, 128
+    G = Hq // Hkv
+
+    def i32(n):
+        return torch.full((), n, dtype=torch.int32, device=dev)
+
+    errs = []
+    cases = ((1, 0, None), (16, 0, None), (63, 0, None), (64, 0, None),
+             (65, 0, 40), (200, 64, 150), (256, 0, None))
+    for (S, window, kv_len), layout, hw in itertools.product(
+            cases, ("bhsd", "bshd-view"), (None, 6, 12)):
+        if layout == "bhsd":
+            q, k, v = randn(B, Hq, S, hd), randn(B, Hkv, S, hd), \
+                randn(B, Hkv, S, hd)
+        else:
+            qkv = randn(B, S, Hq + 2 * Hkv, hd)
+            q, k, v = (t.transpose(1, 2)
+                       for t in qkv.split([Hq, Hkv, Hkv], dim=2))
+        kw = dict(window=window,
+                  kv_len=None if kv_len is None else i32(kv_len),
+                  head_width=i32(hw) if hw == 6 else hw)
+        label = (f"flash_attention S={S} window={window} kv_len={kv_len} "
+                 f"{layout} head_width={hw}")
+        got = fa.flash_attention(q, k, v, **kw)
+        errs.append(_compare(torch, label, got,
+                             fa.flash_attention_plain(q, k, v, **kw)))
+        if not torch.equal(got, fa.flash_attention(q, k, v, **kw)):
+            fail(f"{label}: two launches gave different bits")
+        if hw is not None and got[:, ~ref.head_active(Hq, Hkv, hw, dev)].any():
+            fail(f"{label}: nonzero outputs of inactive heads")
+    say("kernel-case", name="flash_attention", cases=len(errs),
+        max_abs_err=max(errs), checked="BF16_TOL against the plain version, "
+        "two launches bitwise equal, inactive heads exactly 0")
+
+    def live_pairs(S):
+        return S * (S + 1) // 2           # causal, no window
+
+    rows = {}
+    half = i32(Hq // 2)
+    for S in (16, 256, 2048):
+        q, k, v = randn(B, Hq, S, hd), randn(B, Hkv, S, hd), \
+            randn(B, Hkv, S, hd)
+        kx, vx = k.repeat_interleave(G, dim=1), v.repeat_interleave(G, dim=1)
+        bound, by = card.bound(2 * (2 * q.numel() + k.numel() + v.numel()),
+                               4 * hd * live_pairs(S) * B * Hq)
+        row = dict(
+            shape=[B, Hq, Hkv, S, hd], plan=list(fa.pack_plan(S, G)),
+            device_ms=device_ms(torch, lambda: fa.flash_attention(q, k, v)),
+            half_heads_device_ms=device_ms(
+                torch, lambda: fa.flash_attention(q, k, v, head_width=half)),
+            library_device_ms=device_ms(
+                torch, lambda: F.scaled_dot_product_attention(
+                    q, kx, vx, is_causal=True)),
+            bound_ms=bound, bound_by=by)
+        if S == 16:
+            row["host_us"] = host_us(
+                torch, lambda: fa.flash_attention(q, k, v), rounds=5)
+        if S == 256:
+            row.update(
+                ms=time_ms(torch, lambda: fa.flash_attention(q, k, v)),
+                plain_ms=time_ms(
+                    torch, lambda: fa.flash_attention_plain(q, k, v),
+                    iters=10),
+                library_ms=time_ms(
+                    torch, lambda: F.scaled_dot_product_attention(
+                        q, kx, vx, is_causal=True)))
+        rows[S] = row
+        say("kernel", name="flash_attention", S=S, **row)
+    return dict(rows[256], max_abs_err=max(errs), cases=len(errs),
+                s16=rows[16], s2048=rows[2048])
+
+
+def host_us(torch, fn, n: int = 200, rounds: int = 1) -> float:
     """Host microseconds per call of ``fn`` (the wrapper's own cost: the
-    calls are enqueued without a synchronize in between)."""
+    calls are enqueued without a synchronize in between); with ``rounds``
+    > 1 the least of that many means, the one the shared host disturbed
+    least."""
     fn()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(n):
-        fn()
-    us = (time.perf_counter() - t0) / n * 1e6
-    torch.cuda.synchronize()
-    return us
+    best = float("inf")
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        best = min(best, (time.perf_counter() - t0) / n * 1e6)
+        torch.cuda.synchronize()
+    return best
+
+
+# sliced_matmul's output bits on the inputs of sliced_digest, as the
+# build before its PTX helpers moved into csrc/hopper.cuh gave them on an
+# H100 with 132 SMs (tools/flash_bench.py on both builds in one call; the
+# grid, so the split plan, follows the SM count)
+SLICED_DIGEST = {
+    "sms": 132,
+    "sha256": "b3a3696d70f9b1511e6958cfae7f36c0f81d0e23dbee50836c24f25b10afa25b"}
+
+
+def sliced_digest(torch):
+    """sha256 of ``sliced_matmul``'s output bits over fixed cases (inputs
+    from a numpy seed, widths in device memory), with the card's SM
+    count."""
+    import hashlib
+    import numpy as np
+    from repro_torch.kernels import sliced_matmul as sm
+    rng = np.random.default_rng(11)
+    h = hashlib.sha256()
+
+    def dev(shape):
+        return torch.from_numpy(rng.standard_normal(shape, np.float32)
+                                ).to("cuda").bfloat16()
+
+    def width(n):
+        return None if n is None else torch.full((), n, dtype=torch.int32,
+                                                 device="cuda")
+
+    for M, K, N, ai, ao, nseg in ((128, 1536, 8960, None, 4480, 1),
+                                  (8, 8960, 1536, 6656, None, 1),
+                                  (128, 1536, 1536, 384, None, 2),
+                                  (2048, 1536, 8960, None, None, 1)):
+        y = sm.sliced_matmul(dev((M, K)), dev((K, N)), width(ai), width(ao),
+                             segments=nseg)
+        h.update(y.view(torch.int16).cpu().numpy().tobytes())
+    return {"sms": torch.cuda.get_device_properties(0).multi_processor_count,
+            "sha256": h.hexdigest()}
 
 
 def _sliced_cases(torch, card, randn):
@@ -426,6 +518,15 @@ def _sliced_cases(torch, card, randn):
             sm.sliced_matmul_plain(og, wg, act, None)))
     say("kernel-case", name="sliced_matmul", case="per-group strided views",
         max_abs_err=errs[-1])
+    digest = sliced_digest(torch)
+    same = digest == SLICED_DIGEST
+    if digest["sms"] == SLICED_DIGEST["sms"] and not same:
+        fail("sliced_matmul: output bits differ from the build before the "
+             "helper move")
+    say("kernel-case", name="sliced_matmul", case="bits of fixed cases",
+        sms=digest["sms"], same_as_before_helper_move=(
+            same if digest["sms"] == SLICED_DIGEST["sms"]
+            else "not compared: another SM count"))
     return dict(headline, max_abs_err=max(errs), cases=len(errs))
 
 
@@ -659,8 +760,19 @@ def phase_trace(torch):
             launches=launches[kind],
             port_kernels_ms={k: [ms, c] for k, (ms, c) in port.items()},
             top=[[name[:60], t / n / 1e3, c // n] for name, (t, c) in top])
+    # the flash kernel's device ms in the switch prefills: the narrowest
+    # computes half the heads of the widest
+    flash = {kind: report[kind]["port_kernels_ms"].get(
+                 "flash_fwd_kernel", [0.0, 0])[0]
+             for kind in ("switch_prefill_widest", "switch_prefill_narrowest")}
     say("trace", batch=8, seq=16, subnet=idx,
-        switch_subnets=[sw.points[0].sub.key(), narrow.key()], **report)
+        switch_subnets=[sw.points[0].sub.key(), narrow.key()],
+        flash_ms_switch_widest=flash["switch_prefill_widest"],
+        flash_ms_switch_narrowest=flash["switch_prefill_narrowest"],
+        flash_narrowest_over_widest=(
+            flash["switch_prefill_narrowest"] / flash["switch_prefill_widest"]
+            if flash["switch_prefill_widest"] else "not measured"),
+        **report)
 
 
 def phase_reference(torch):

@@ -5,8 +5,8 @@ Each kernel has two registered implementations in
 :mod:`repro_torch.kernels.dispatch`: ``cuda`` (the hand-written Hopper
 kernel) and ``torch`` (its plain version). The device of the first tensor
 argument picks one; a per-call ``tier=`` must agree with it. There is no
-fallthrough: ``sliced_matmul`` has no CUDA kernel yet, so a CUDA tensor
-raises there instead of silently running the plain version.
+fallthrough: a CUDA tensor runs the kernel or raises, never the plain
+version.
 """
 from __future__ import annotations
 
@@ -19,18 +19,20 @@ from repro_torch.kernels.dispatch import DISPATCHER, register
 
 
 @register("flash_attention", "cuda")
-def _flash_cuda(q, k, v, *, causal, window, kv_len, q_block, kv_block):
-    # tile sizes are fixed by the kernel (64 x 64); the block arguments
-    # bind only the plain version
+def _flash_cuda(q, k, v, *, causal, window, kv_len, head_width, q_block,
+                kv_block):
+    # the kernel picks its own tiles (kernels/flash_attention.py,
+    # pack_plan); the block arguments bind only the plain version
     return _flash.flash_attention(q, k, v, causal=causal, window=window,
-                                  kv_len=kv_len)
+                                  kv_len=kv_len, head_width=head_width)
 
 
 @register("flash_attention", "torch")
-def _flash_torch(q, k, v, *, causal, window, kv_len, q_block, kv_block):
+def _flash_torch(q, k, v, *, causal, window, kv_len, head_width, q_block,
+                 kv_block):
     return _flash.flash_attention_plain(q, k, v, causal=causal, window=window,
-                                        kv_len=kv_len, q_block=q_block,
-                                        kv_block=kv_block)
+                                        kv_len=kv_len, head_width=head_width,
+                                        q_block=q_block, kv_block=kv_block)
 
 
 @register("decode_attention", "cuda")
@@ -74,10 +76,14 @@ def _rmsnorm_torch(x, gamma_table, subnet_id, *, eps):
 
 
 def flash_attention(q, k, v, *, causal=True, window=0, kv_len=None,
-                    q_block=256, kv_block=256, tier=None):
+                    head_width=None, q_block=256, kv_block=256, tier=None):
+    """Causal / windowed GQA attention; with ``head_width`` only the
+    active query heads are computed and the rest are 0 (see
+    ``kernels/flash_attention.py``)."""
     return DISPATCHER.call(
         "flash_attention", q, k, v, causal=causal, window=window,
-        kv_len=kv_len, q_block=q_block, kv_block=kv_block, tier=tier)
+        kv_len=kv_len, head_width=head_width, q_block=q_block,
+        kv_block=kv_block, tier=tier)
 
 
 def decode_attention(q, k_cache, v_cache, index, *, window=0, kv_block=256,
@@ -108,8 +114,11 @@ def subnet_rmsnorm(x, gamma_table, subnet_id, *, eps=1e-5, tier=None):
 
 
 def model_flash_attention(q, k, v, *, causal=True, window=0, q_offset=0,
-                          kv_len=None, q_block=512, kv_block=512, scale=None):
-    """Full-sequence attention for model forward passes.
+                          kv_len=None, q_block=512, kv_block=512, scale=None,
+                          head_width=None):
+    """Full-sequence attention for model forward passes; ``head_width``
+    (WeightSlice switch mode) computes only the active heads and zeros the
+    rest.
 
     The kernel does not take ``q_offset``/``scale``. On CPU tensors a call
     using them takes the plain path (the rule of
@@ -121,12 +130,14 @@ def model_flash_attention(q, k, v, *, causal=True, window=0, q_offset=0,
                 f"flash_attention: q_offset / scale on {q.device} tensors: "
                 f"the kernel takes neither yet; they come with the slice "
                 f"that needs them (chunked prefill, a cached prefix)")
-        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
-                                       kv_len=kv_len, scale=scale,
-                                       q_offset=q_offset, q_block=q_block,
-                                       kv_block=kv_block)
+        o = ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                    kv_len=kv_len, scale=scale,
+                                    q_offset=q_offset, q_block=q_block,
+                                    kv_block=kv_block)
+        return ref.zero_inactive_heads(o, k.shape[1], head_width)
     return flash_attention(q, k, v, causal=causal, window=window,
-                           kv_len=kv_len, q_block=q_block, kv_block=kv_block)
+                           kv_len=kv_len, head_width=head_width,
+                           q_block=q_block, kv_block=kv_block)
 
 
 def model_decode_attention(q, k_cache, v_cache, *, index, window=0,

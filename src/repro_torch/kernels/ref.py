@@ -149,6 +149,27 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
     return o.reshape(B, Hq, Sq, d).to(v.dtype)
 
 
+def head_active(Hq: int, Hkv: int, head_width, device) -> torch.Tensor:
+    """Which of ``Hq`` query heads over ``Hkv`` kv heads are active at
+    ``head_width`` (an int or a 0-d int tensor): under GQA a prefix of
+    every kv group, ``h % G < head_width // Hkv``; under MHA the prefix
+    ``h < head_width``."""
+    G = Hq // Hkv
+    iota = torch.arange(Hq, device=device)
+    if G > 1:
+        return (iota % G) < head_width // Hkv
+    return iota < head_width
+
+
+def zero_inactive_heads(o, Hkv: int, head_width):
+    """o: (B, Hq, S, d) with the outputs of inactive heads set to 0;
+    ``head_width`` None keeps every head."""
+    if head_width is None:
+        return o
+    m = head_active(o.shape[1], Hkv, head_width, o.device)
+    return o * m.reshape(1, -1, 1, 1).to(o.dtype)
+
+
 def _decode_mask(index, Smax: int, window: int, device):
     pos = torch.arange(Smax, device=device)
     if window:

@@ -7,8 +7,9 @@ The attention itself goes through the kernel entry points
 CUDA kernels on the GPU, their plain versions on the CPU. M-RoPE comes
 with a later slice of the port.
 
-WeightSlice switch mode (prefill): attention runs over all query heads as
-in mask mode, and the output projection goes through the ``sliced_matmul``
+WeightSlice switch mode (prefill): attention computes only the active
+query heads (the flash kernel reads ``head_width`` and writes zeros for
+the rest), and the output projection goes through the ``sliced_matmul``
 kernel, which contracts only the rows of the active heads: under GQA the
 first ``head_width // kv`` heads of each KV group (one K segment per KV
 head), under MHA the first ``head_width`` heads. The width it reads,
@@ -27,6 +28,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core import operators as ops
 from repro_torch.core.subnet import head_group_size
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ref as kref
 from repro_torch.models.common import dense_init, ones_table
 
 # --------------------------------------------------------------------------
@@ -113,14 +115,8 @@ def head_mask(cfg: ArchConfig, o, head_width):
     GQA: active heads are a per-KV-group prefix (cache layout stays
     identical across subnets); MHA: a global prefix."""
     Hq = cfg.n_heads
-    group = head_group_size(cfg)
-    iota = torch.arange(Hq, device=o.device)
-    if group > 1:
-        kv = Hq // group
-        per_group = head_width // kv
-        m = (iota % group) < per_group
-    else:
-        m = iota < head_width
+    m = kref.head_active(Hq, Hq // head_group_size(cfg), head_width,
+                         o.device)
     shape = [1] * o.dim()
     shape[-2] = Hq
     return o * m.reshape(shape).to(o.dtype)
@@ -166,12 +162,16 @@ def attention_block(p, cfg: ArchConfig, x, ctrl, positions, *,
                         kind=cfg.norm)
     q, k, v = _project_qkv(p, cfg, h, positions)
     B, S, Hq, hd = q.shape
+    switch = slice_mode == "switch" and len(cfg.elastic.head_fracs) > 1
+    # WeightSlice(switch): attention computes only the active heads (their
+    # outputs; the rest are 0), as the JAX switch branch slices them
     o = attn_impl(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                  causal=True, window=cfg.sliding_window)
+                  causal=True, window=cfg.sliding_window,
+                  **({"head_width": ctrl["head_width"]} if switch else {}))
     o = o.transpose(1, 2)                               # (B,S,H,hd)
-    if slice_mode == "switch" and len(cfg.elastic.head_fracs) > 1:
-        # WeightSlice(switch): only the active heads' rows of wo are read
-        # (o is a view of the kernel's (B, S, H, hd) buffer on the card)
+    if switch:
+        # and only the active heads' rows of wo are read (o is a view of
+        # the kernel's (B, S, H, hd) buffer on the card)
         y = kops.sliced_matmul(o.reshape(B * S, Hq * hd), p["wo"],
                                with_wo_width(cfg, ctrl)[WO_WIDTH], None,
                                segments=wo_segments(cfg))

@@ -89,6 +89,49 @@ def test_flash_attention_plain_matches_jax(B, Hq, Hkv, Sq, Sk, d, dtype):
             _close(dense, want_d, dtype)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("bucket", [0, 1])
+@pytest.mark.parametrize("kind", ["gqa", "mha"])
+def test_flash_attention_head_width_matches_jax_on_active_heads(kind, bucket,
+                                                                dtype):
+    """``head_width`` (an int, and a 0-d int32 tensor as switch mode passes
+    it) against JAX's flash_attention run on the active heads only, sliced
+    as the JAX switch branch slices them (``repro/models/attention.py``,
+    ``attention_block``): under GQA a prefix of every kv group, under MHA a
+    prefix of the heads with their kv heads. Interpret-mode Pallas in fp32
+    and the dense oracle in both dtypes; inactive heads exactly 0. Every
+    head bucket of ``tiny_dense``."""
+    from conftest import tiny_dense
+    from repro.core.subnet import width_options
+    jcfg = tiny_dense() if kind == "gqa" else tiny_dense(n_kv_heads=4)
+    Hq, Hkv, d = jcfg.n_heads, jcfg.n_kv_heads, jcfg.head_dim
+    G, B, S = Hq // Hkv, 2, 12
+    hw = width_options(jcfg)["heads"][bucket]
+    rng = np.random.default_rng(6)
+    jq, tq = _pair(rng, (B, Hq, S, d), dtype)
+    jk, tk = _pair(rng, (B, Hkv, S, d), dtype)
+    jv, tv = _pair(rng, (B, Hkv, S, d), dtype)
+    if G > 1:
+        a = hw // Hkv
+        qs = jq.reshape(B, Hkv, G, S, d)[:, :, :a].reshape(B, Hkv * a, S, d)
+        ks, vs = jk, jv
+        act = [j * G + h for j in range(Hkv) for h in range(a)]
+    else:
+        qs, ks, vs = jq[:, :hw], jk[:, :hw], jv[:, :hw]
+        act = list(range(hw))
+    idle = [h for h in range(Hq) if h not in act]
+    wants = [jref.flash_attention_dense_ref(qs, ks, vs, causal=True)]
+    if dtype == "float32":
+        wants.append(jops.flash_attention(qs, ks, vs, causal=True, q_block=8,
+                                          kv_block=8, tier="interpret"))
+    for width in (hw, torch.tensor(hw, dtype=torch.int32)):
+        got = ops.flash_attention(tq, tk, tv, causal=True, head_width=width,
+                                  q_block=8, kv_block=8)
+        for want in wants:
+            _close(got[:, act], want, dtype)
+        assert (got[:, idle] == 0).all()
+
+
 def test_flash_attention_q_offset_and_scale_take_plain_path():
     """ops.py:173 rule: q_offset / scale calls take the plain path; the
     offset shifts the causal frontier like the JAX blockwise path."""

@@ -11,6 +11,7 @@ import torch
 
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ref
 from repro_torch.kernels import sliced_matmul as sm
 from repro_torch.kernels import subnet_rmsnorm as rn
 
@@ -33,18 +34,61 @@ def _randn(gen, *shape, dev, dtype=torch.bfloat16):
     return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
 
-def test_flash_attention_kernel_matches_plain(cuda):
-    gen = torch.Generator(device=cuda).manual_seed(0)
-    for S, window, kv_len in ((16, 0, None), (256, 0, None), (200, 64, 150)):
+# (S, window, kv_len): ragged prompts around the 64-row tile and the 64-key
+# tile, a window with a short kv_len, the served S = 16 and S = 256
+FLASH_CASES = [(1, 0, None), (16, 0, None), (63, 0, None), (64, 0, None),
+               (65, 0, 40), (200, 64, 150), (256, 0, None)]
+
+
+@pytest.mark.parametrize("head_width", [None, 6, 12])
+@pytest.mark.parametrize("layout", ["bhsd", "bshd-view"])
+@pytest.mark.parametrize("S,window,kv_len", FLASH_CASES)
+def test_flash_attention_kernel_matches_plain(cuda, S, window, kv_len, layout,
+                                              head_width):
+    """qwen2-1.5b heads (12 over 2 kv heads): against the plain version,
+    with kv_len and the head width (each qwen2-1.5b bucket; 6 as a device
+    tensor, as switch mode passes it) read on the card, on contiguous
+    (B, H, S, d) tensors and on (B, S, H, d) buffers viewed as the model
+    passes them; two launches give the same bits, inactive heads are 0."""
+    gen = torch.Generator(device=cuda).manual_seed(S)
+    if layout == "bhsd":
         q = _randn(gen, 2, 12, S, 128, dev=cuda)
         k = _randn(gen, 2, 2, S, 128, dev=cuda)
         v = _randn(gen, 2, 2, S, 128, dev=cuda)
-        kvl = None if kv_len is None else torch.tensor(
-            kv_len, dtype=torch.int32, device=cuda)
-        got = fa.flash_attention(q, k, v, window=window, kv_len=kvl)
-        want = fa.flash_attention_plain(q, k, v, window=window, kv_len=kvl)
-        torch.testing.assert_close(got.float(), want.float(),
-                                   **TOL)
+    else:   # one (B, S, 16, d) projection, split as views
+        qkv = _randn(gen, 2, S, 16, 128, dev=cuda)
+        q, k, v = (t.transpose(1, 2) for t in qkv.split([12, 2, 2], dim=2))
+    kvl = None if kv_len is None else _i32(kv_len, cuda)
+    hw = _i32(head_width, cuda) if head_width == 6 else head_width
+    got = fa.flash_attention(q, k, v, window=window, kv_len=kvl,
+                             head_width=hw)
+    want = fa.flash_attention_plain(q, k, v, window=window, kv_len=kvl,
+                                    head_width=hw)
+    torch.testing.assert_close(got.float(), want.float(), **TOL)
+    assert torch.equal(got, fa.flash_attention(q, k, v, window=window,
+                                               kv_len=kvl, head_width=hw))
+    if head_width is not None:
+        idle = ~ref.head_active(12, 2, head_width, cuda)
+        assert idle.sum() == 12 - head_width
+        assert (got[:, idle] == 0).all()
+
+
+def test_flash_attention_kernel_refuses_what_it_does_not_take(cuda):
+    """The wrapper raises, before any launch, on a head_dim it was not
+    built for, rows that are not 16-byte aligned, a kv_len tensor of
+    another type and a negative head width."""
+    q = torch.zeros((1, 12, 16, 128), dtype=torch.bfloat16, device=cuda)
+    k = torch.zeros((1, 2, 16, 128), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention(q[..., :64], k[..., :64], k[..., :64])
+    buf = torch.zeros(q.numel() + 4, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        fa.flash_attention(buf[4:].view(q.shape), k, k)   # 8-byte offset
+    with pytest.raises(TypeError, match="kv_len"):
+        fa.flash_attention(q, k, k, kv_len=torch.tensor(
+            16, dtype=torch.int64, device=cuda))
+    with pytest.raises(ValueError, match="head_width"):
+        fa.flash_attention(q, k, k, head_width=-1)
 
 
 def test_flash_attention_q_offset_on_cuda_raises(cuda):

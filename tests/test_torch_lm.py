@@ -165,8 +165,13 @@ def switch_model(request):
     return jcfg, port_cfg(jcfg), jparams, port_params(jparams)
 
 
-def test_switch_forward_and_prefill_match_jax_for_every_subnet(switch_model):
+@pytest.mark.parametrize("level", ["lm", "attention_block"])
+def test_switch_forward_and_prefill_match_jax_for_every_subnet(switch_model,
+                                                               level):
     jcfg, tcfg, jparams, tparams = switch_model
+    if level == "attention_block":
+        _switch_attention_block_matches_jax(jcfg, tcfg, jparams, tparams)
+        return
     toks = np.random.default_rng(10).integers(
         0, jcfg.vocab_size, (2, 12)).astype(np.int32)
     fwd = jax.jit(lambda p, t, c: jlm.forward(p, jcfg, {"tokens": t}, c,
@@ -185,6 +190,49 @@ def test_switch_forward_and_prefill_match_jax_for_every_subnet(switch_model):
         np.testing.assert_allclose(got.numpy(),
                                    np.asarray(pre(jparams, toks, jctrl)),
                                    **TOL, err_msg=f"prefill {tsub}")
+
+
+def _switch_attention_block_matches_jax(jcfg, tcfg, jparams, tparams):
+    """The first attention block alone in switch mode, against the JAX
+    switch branch (which slices the active heads before attention): the
+    port's flash entry point is handed ``ctrl["head_width"]``, and the
+    outputs of inactive heads leave it exactly 0."""
+    from repro.models import attention as jattn
+    from repro_torch.core import operators as tops
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref as kref
+    from repro_torch.models import attention as tattn
+    jp = jax.tree.map(lambda a: a[0],
+                      jparams["backbone"]["stages"][0]["0:attn"])
+    tp = {k: v[0] for k, v in
+          tparams["backbone"]["stages"][0]["0:attn"].items()}
+    rng = np.random.default_rng(13)
+    x = rng.standard_normal((2, 12, jcfg.d_model)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(12, dtype=np.int32), (2, 12))
+    block = jax.jit(lambda p, xx, c: jattn.attention_block(
+        p, jcfg, xx, c, jnp.asarray(pos), slice_mode="switch"))
+    for jsub, tsub in _subnets(jcfg, tcfg):
+        jctrl = jsn.make_control(jcfg, jsub)
+        tctrl = tops.device_control(
+            tattn.with_wo_width(tcfg, tsn.make_control(tcfg, tsub)), "cpu")
+        seen = []
+
+        def spy(q, k, v, **kw):
+            o = kops.model_flash_attention(q, k, v, **kw)
+            seen.append((kw.get("head_width"), o, k.shape[1]))
+            return o
+
+        got = tattn.attention_block(tp, tcfg, torch.from_numpy(x), tctrl,
+                                    torch.from_numpy(pos),
+                                    slice_mode="switch", attn_impl=spy)
+        np.testing.assert_allclose(got.numpy(),
+                                   np.asarray(block(jp, x, jctrl)), **TOL,
+                                   err_msg=f"attention block {tsub}")
+        (hw, o, hkv), = seen
+        assert int(hw) == int(tctrl["head_width"])
+        inactive = ~kref.head_active(o.shape[1], hkv, hw, "cpu")
+        assert inactive.any() == (int(hw) < tcfg.n_heads)
+        assert (o[:, inactive] == 0).all(), tsub
 
 
 def test_switch_decode_8_steps_match_jax_for_every_subnet(switch_model):

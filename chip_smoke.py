@@ -20,7 +20,12 @@ Phases, one result line each:
    the head width read on the card, (B, S, H, d) views) with two launches
    bitwise equal and inactive heads exactly 0, then device ms at S = 16,
    256 and 2048 at full and half head width against SDPA and the bound,
-   and the wrapper's host us at S = 16. ``sliced_matmul`` is timed
+   and the wrapper's host us at S = 16. ``decode_attention`` runs 256
+   cases (G = 1, 5, 6, 8; B = 1, 8; Smax = 16, 32, 256, 2048; every index
+   class; window 0 and 64) with two launches bitwise equal, must be one
+   device kernel a call allocating nothing but its output, then device ms
+   at Smax 16, 256 and 2048 against masked SDPA and the bound, and host
+   us at Smax 256. ``sliced_matmul`` is timed
    over weight copies that exceed the L2 cache, as each layer finds its
    weights cold, its columns past ``active_out`` must be exactly 0, and
    two launches must give the same bits; the bits of fixed cases must
@@ -203,7 +208,6 @@ def _compare(torch, name, got, want):
 
 def phase_kernels(torch, card):
     import torch.nn.functional as F
-    from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import subnet_rmsnorm as rn
     gen = torch.Generator(device="cuda").manual_seed(0)
     dev = "cuda"
@@ -246,43 +250,8 @@ def phase_kernels(torch, card):
     # -- flash_attention: q (B,12,S,128), k/v (B,2,S,128) ------------------
     results["flash_attention"] = _flash_cases(torch, card, randn)
 
-    # -- decode_attention: q (B,12,1,128), cache (B,2,256,128) -------------
-    B, Hq, Hkv, hd = 8, 12, 2, 128
-    G = Hq // Hkv
-    Smax = 256
-    q, kc, vc = randn(B, Hq, 1, hd), randn(B, Hkv, Smax, hd), randn(B, Hkv, Smax, hd)
-    kcx, vcx = kc.repeat_interleave(G, dim=1), vc.repeat_interleave(G, dim=1)
-    errs = []
-    for index in (0, 100, Smax - 1):
-        idx = torch.full((), index, dtype=torch.int32, device=dev)
-        for window in (0, 64):
-            got = da.decode_attention(q, kc, vc, idx, window=window)
-            want = da.decode_attention_plain(q, kc, vc, idx, window=window)
-            err = _compare(torch, f"decode_attention index={index} "
-                                  f"window={window}", got, want)
-            errs.append(err)
-            say("kernel-case", name="decode_attention", Smax=Smax,
-                index=index, window=window, max_abs_err=err)
-    index = Smax - 1
-    idx = torch.full((), index, dtype=torch.int32, device=dev)
-    mask = (torch.arange(Smax, device=dev) <= index)[None, None, None, :]
-    live = index + 1
-    nbytes = 2 * (2 * q.numel() + 2 * B * Hkv * live * hd)
-    bound, by = card.bound(nbytes, 4 * hd * live * B * Hq)
-    results["decode_attention"] = dict(
-        shape=[B, Hq, Hkv, Smax, hd], index=index, max_abs_err=max(errs),
-        ms=time_ms(torch, lambda: da.decode_attention(q, kc, vc, idx)),
-        plain_ms=time_ms(torch, lambda: da.decode_attention_plain(
-            q, kc, vc, idx)),
-        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
-            q, kcx, vcx, attn_mask=mask)),
-        bound_ms=bound, bound_by=by,
-        device_ms=device_ms(torch, lambda: da.decode_attention(q, kc, vc,
-                                                               idx)),
-        library_device_ms=device_ms(
-            torch, lambda: F.scaled_dot_product_attention(
-                q, kcx, vcx, attn_mask=mask)))
-    say("kernel", name="decode_attention", **results["decode_attention"])
+    # -- decode_attention: q (B,12,1,128), cache (B,2,Smax,128) ------------
+    results["decode_attention"] = _decode_cases(torch, card, randn)
     results["sliced_matmul"] = _sliced_cases(torch, card, randn)
     return results
 
@@ -372,6 +341,107 @@ def _flash_cases(torch, card, randn):
         say("kernel", name="flash_attention", S=S, **row)
     return dict(rows[256], max_abs_err=max(errs), cases=len(errs),
                 s16=rows[16], s2048=rows[2048])
+
+
+def _decode_cases(torch, card, randn):
+    """decode_attention over G = 1, 5, 6, 8 query heads per kv head (2 kv
+    heads, d = 128), B = 1 and 8, Smax = 16, 32, 256 and 2048, every index
+    class (0, 3, Smax / 2, Smax - 1) and window 0 and 64, held against the
+    plain version; two launches must give the same bits. Then one device
+    kernel a call and no allocation but the output, and at qwen2-1.5b's
+    heads (12 over 2), B = 8: device ms at Smax 16 (index 3, the trace's
+    decode step), 256 (index 255) and 2048 (index 2047 and 1023) beside
+    masked SDPA (on k/v repeated per query head) and the bound, and the
+    wrapper's host us at Smax 256 (least mean of 10 rounds). Returns the
+    Smax = 256 row (the headline)."""
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import decode_attention as da
+    dev = "cuda"
+    errs = []
+    for G, B, Smax in itertools.product((1, 5, 6, 8), (1, 8),
+                                        (16, 32, 256, 2048)):
+        q, kc, vc = randn(B, 2 * G, 1, 128), randn(B, 2, Smax, 128), \
+            randn(B, 2, Smax, 128)
+        for index, window in itertools.product(
+                sorted({0, 3, Smax // 2, Smax - 1}), (0, 64)):
+            idx = torch.full((), index, dtype=torch.int32, device=dev)
+            label = (f"decode_attention G={G} B={B} Smax={Smax} "
+                     f"index={index} window={window}")
+            got = da.decode_attention(q, kc, vc, idx, window=window)
+            errs.append(_compare(torch, label, got, da.decode_attention_plain(
+                q, kc, vc, idx, window=window)))
+            if not torch.equal(got, da.decode_attention(q, kc, vc, idx,
+                                                        window=window)):
+                fail(f"{label}: two launches gave different bits")
+    say("kernel-case", name="decode_attention", cases=len(errs),
+        max_abs_err=max(errs), checked="BF16_TOL against the plain version, "
+        "two launches bitwise equal")
+
+    B, Hq, Hkv, hd = 8, 12, 2, 128
+    G = Hq // Hkv
+    q = randn(B, Hq, 1, hd)
+    sms = da._sm_count(q.device)
+    rows = {}
+    for Smax, index in ((16, 3), (256, 255), (2048, 2047), (2048, 1023)):
+        kc, vc = randn(B, Hkv, Smax, hd), randn(B, Hkv, Smax, hd)
+        kcx, vcx = kc.repeat_interleave(G, dim=1), vc.repeat_interleave(G, dim=1)
+        idx = torch.full((), index, dtype=torch.int32, device=dev)
+        mask = (torch.arange(Smax, device=dev) <= index)[None, None, None, :]
+        n_split = da.grid_splits(B * Hkv, Smax, sms)
+        _, length = da.live_range(index, 0, Smax)
+        chunk, n_live = da.schedule(length, n_split, da.PLAN.min_chunk)
+
+        def run():
+            return da.decode_attention(q, kc, vc, idx)
+        # one device kernel a call, and no allocation but the output
+        run()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                run()
+            torch.cuda.synchronize()
+        names = [ev.name for ev in prof.events()
+                 if ev.device_type == torch.autograd.DeviceType.CUDA]
+        if len(names) != 3 or not all("decode_attention_kernel" in n
+                                       for n in names):
+            fail(f"decode_attention Smax={Smax}: not one kernel a call: "
+                 f"{names}")
+        before = torch.cuda.memory_allocated()
+        kept = run()
+        grew = torch.cuda.memory_allocated() - before
+        if grew != kept.untyped_storage().nbytes():
+            fail(f"decode_attention Smax={Smax}: a call allocated {grew} "
+                 f"bytes, its output {kept.untyped_storage().nbytes()}")
+        del kept
+        nbytes = 2 * (2 * q.numel() + 2 * B * Hkv * length * hd)
+        bound, by = card.bound(nbytes, 4 * hd * length * B * Hq)
+        row = dict(
+            shape=[B, Hq, Hkv, Smax, hd], index=index, plan=list(da.PLAN),
+            grid=[B * Hkv, n_split], chunk=chunk, live_splits=n_live,
+            device_ms=device_ms(torch, run),
+            library_device_ms=device_ms(
+                torch, lambda: F.scaled_dot_product_attention(
+                    q, kcx, vcx, attn_mask=mask)),
+            bound_ms=bound, bound_by=by)
+        row["bound_share"] = (bound / row["device_ms"]
+                              if isinstance(row["device_ms"], float)
+                              else "not measured")
+        if Smax == 256:
+            row.update(
+                host_us=host_us(torch, run, rounds=10),
+                ms=time_ms(torch, run),
+                plain_ms=time_ms(torch, lambda: da.decode_attention_plain(
+                    q, kc, vc, idx)),
+                library_ms=time_ms(
+                    torch, lambda: F.scaled_dot_product_attention(
+                        q, kcx, vcx, attn_mask=mask)))
+        rows[f"{Smax}/{index}"] = row
+        say("kernel", name="decode_attention", Smax=Smax, **row)
+        del kc, vc, kcx, vcx
+    return dict(rows["256/255"], max_abs_err=max(errs), cases=len(errs),
+                smax16=rows["16/3"], smax2048=rows["2048/2047"],
+                smax2048_index1023=rows["2048/1023"])
 
 
 def host_us(torch, fn, n: int = 200, rounds: int = 1) -> float:
@@ -538,8 +608,7 @@ PATH_KERNELS = ("subnet_rmsnorm", "flash_attention", "decode_attention",
                 "sliced_matmul")
 # device symbols of the port's kernels, as the profiler names them
 PORT_KERNEL_SYMBOLS = ("_rmsnorm_rows", "flash_fwd_kernel",
-                       "decode_split_kernel", "decode_combine_kernel",
-                       "sliced_matmul_kernel")
+                       "decode_attention_kernel", "sliced_matmul_kernel")
 
 
 def phase_serve(torch):
@@ -682,12 +751,13 @@ def phase_switch(torch):
             for k in set(parity_launches) | set(serve_launches)}
 
 
-def phase_trace(torch):
+def phase_trace(torch, symbols=PORT_KERNEL_SYMBOLS):
     """Where a warmed full-width prefill (B=8, S=16, largest subnet), a
     decode step, and a switch-mode prefill of the widest and the narrowest
     full-depth subnet spend their time: host wall clock (median of 10,
     taken in rounds over the four) against device kernel time from
-    torch.profiler, and the kernel launches of each."""
+    torch.profiler, and the kernel launches of each; the device ms and
+    launches of each kernel whose name holds one of ``symbols``."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
     from repro_torch import compat
@@ -747,7 +817,7 @@ def phase_trace(torch):
         top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:6]
         port = {}
         for name, (us, cnt) in per_kernel.items():
-            for tag in PORT_KERNEL_SYMBOLS:
+            for tag in symbols:
                 if tag in name:
                     ms, c = port.get(tag, (0.0, 0))
                     port[tag] = (ms + us / n / 1e3, c + cnt // n)

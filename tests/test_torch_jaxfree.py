@@ -47,7 +47,8 @@ def test_port_imports_without_jax_or_repro():
 
 def test_no_source_names_jax_or_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py", ROOT / "tools" / "flash_bench.py",
+              ROOT / "tools" / "decode_bench.py"]
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):

@@ -337,9 +337,12 @@ def test_build_counter_reads_triton_builds_at_its_edges(monkeypatch):
 
 
 def test_decode_split_plan_covers_the_cache():
+    """The grid's splits, sized from static facts, hold every live split
+    of a full cache, and the live splits' chunks cover it exactly."""
     for sms in (114, 132):
         for bkv in (1, 2, 16, 128, 1000):
             for smax in (16, 64, 96, 256, 4096):
-                n, chunk = da.split_plan(bkv, smax, sms)
-                assert n >= 1 and chunk >= 1
-                assert n * chunk >= smax > (n - 1) * chunk
+                n = da.grid_splits(bkv, smax, sms)
+                chunk, n_live = da.schedule(smax, n, da.PLAN.min_chunk)
+                assert 1 <= n_live <= n and chunk >= 1
+                assert n_live * chunk >= smax > (n_live - 1) * chunk

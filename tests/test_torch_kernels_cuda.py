@@ -9,6 +9,7 @@ GPU machine without them:
 import pytest
 import torch
 
+from repro_torch.kernels import build
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ref
@@ -99,18 +100,95 @@ def test_flash_attention_q_offset_on_cuda_raises(cuda):
         ops.model_flash_attention(q, k, k, q_offset=1)
 
 
-def test_decode_attention_kernel_matches_plain(cuda):
+@pytest.mark.parametrize("Smax", [16, 32, 100, 256, 2048])
+@pytest.mark.parametrize("B", [1, 8])
+@pytest.mark.parametrize("G", [1, 5, 6, 8])
+def test_decode_attention_kernel_matches_plain(cuda, G, B, Smax):
+    """G query heads over 2 kv heads (qwen2-1.5b: G = 6), every index
+    class and a window, against the plain version, on caches of the
+    served buckets, a ragged one (100: a last unit of 4 positions, a
+    window that wraps) and a long one; two launches give the same bits."""
     gen = torch.Generator(device=cuda).manual_seed(1)
-    q = _randn(gen, 2, 12, 1, 128, dev=cuda)
-    kc = _randn(gen, 2, 2, 256, 128, dev=cuda)
-    vc = _randn(gen, 2, 2, 256, 128, dev=cuda)
-    for index in (0, 100, 255):
+    q = _randn(gen, B, 2 * G, 1, 128, dev=cuda)
+    kc = _randn(gen, B, 2, Smax, 128, dev=cuda)
+    vc = _randn(gen, B, 2, Smax, 128, dev=cuda)
+    for index in sorted({0, 3, Smax // 2, Smax - 1}):
         idx = torch.tensor(index, dtype=torch.int32, device=cuda)
         for window in (0, 64):
             got = da.decode_attention(q, kc, vc, idx, window=window)
             want = da.decode_attention_plain(q, kc, vc, idx, window=window)
-            torch.testing.assert_close(got.float(), want.float(),
-                                       **TOL)
+            torch.testing.assert_close(got.float(), want.float(), **TOL)
+            assert torch.equal(got, da.decode_attention(q, kc, vc, idx,
+                                                        window=window))
+
+
+def test_decode_attention_is_one_kernel_per_call(cuda):
+    """One device kernel a call, with one live split and with many."""
+    from torch.profiler import ProfilerActivity, profile
+    q = torch.ones((8, 12, 1, 128), dtype=torch.bfloat16, device=cuda)
+    for Smax, index in ((16, 3), (256, 255), (2048, 1023)):
+        kc = torch.ones((8, 2, Smax, 128), dtype=torch.bfloat16, device=cuda)
+        idx = torch.tensor(index, dtype=torch.int32, device=cuda)
+        da.decode_attention(q, kc, kc, idx)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                da.decode_attention(q, kc, kc, idx)
+            torch.cuda.synchronize()
+        names = [ev.name for ev in prof.events()
+                 if ev.device_type == torch.autograd.DeviceType.CUDA]
+        assert len(names) == 3, names
+        assert all("decode_attention_kernel" in n for n in names), names
+
+
+def test_decode_attention_allocates_only_its_output(cuda):
+    """A call allocates its output and nothing else, with one live split
+    (the served decode: one block a row writes it) and with many (merged
+    inside each row's cluster)."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    q = _randn(gen, 8, 12, 1, 128, dev=cuda)
+    for Smax, index, merged in ((64, 63, False), (2048, 2047, True)):
+        kc = _randn(gen, 8, 2, Smax, 128, dev=cuda)
+        vc = _randn(gen, 8, 2, Smax, 128, dev=cuda)
+        idx = torch.tensor(index, dtype=torch.int32, device=cuda)
+        n_split = da.grid_splits(16, Smax, da._sm_count(q.device))
+        _, length = da.live_range(index, 0, Smax)
+        n_live = da.schedule(length, n_split, da.PLAN.min_chunk)[1]
+        assert (n_live > 1) == merged
+        want = da.decode_attention_plain(q, kc, vc, idx)
+        da.decode_attention(q, kc, vc, idx)            # built and bound
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(cuda)
+        got = da.decode_attention(q, kc, vc, idx)
+        assert torch.cuda.memory_allocated(cuda) - before \
+            == got.untyped_storage().nbytes()
+        torch.testing.assert_close(got.float(), want.float(), **TOL)
+        del got
+
+
+def test_decode_attention_kernel_refuses_a_split_past_a_cluster(cuda):
+    """The entry point refuses more splits than a cluster holds, a plan it
+    was not built for and a head_dim other than 128, before anything
+    runs."""
+    q = torch.ones((8, 12, 1, 128), dtype=torch.bfloat16, device=cuda)
+    kc = torch.ones((8, 2, 256, 128), dtype=torch.bfloat16, device=cuda)
+    idx = torch.tensor(255, dtype=torch.int32, device=cuda)
+    out = torch.full_like(q, 7.0)
+    fn = build.function(da._C, da._ARGTYPES)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+
+    def call(n_split, plan, head_dim=128):
+        return fn(q.data_ptr(), kc.data_ptr(), kc.data_ptr(), idx.data_ptr(),
+                  out.data_ptr(), 8, 2, 6, 256, head_dim, 0, n_split, plan,
+                  stream)
+    assert call(da.MAX_SPLIT + 1, da.PLAN.word) != 0
+    assert call(4, da.Plan(64, 4).word) != 0
+    assert call(4, da.Plan(24, 2).word) != 0
+    assert call(4, da.PLAN.word, head_dim=64) != 0
+    torch.cuda.synchronize()
+    assert (out == 7.0).all()
+    assert call(4, da.PLAN.word) == 0
+    torch.testing.assert_close(out.float(), torch.ones_like(out.float()))
 
 
 def test_subnet_rmsnorm_kernel_matches_plain(cuda):

@@ -8,14 +8,22 @@ Phases, one result line each:
 
 1. The card (``nvidia-smi`` name and power limit), torch and CUDA
    versions; build the CUDA kernels from ``src/repro_torch/csrc`` (one
-   ``nvcc`` per source, started together) and launch the copy probe.
+   ``nvcc`` per source, started together), each kernel's registers and
+   spills from ``ptxas`` (for ``subnet_rmsnorm`` its main-path
+   instantiation and the worst of its buckets), and launch the copy probe
+   (host-rate and device ms beside ``clone``).
 2. Every kernel of the main path against its plain PyTorch version on the
    card, in bf16, at main-path shapes: max |error| (tolerance 2e-2 abs +
    2e-2 rel, the bf16 tolerance of the JAX package's kernel tests),
    kernel, plain and library (``scaled_dot_product_attention`` /
    ``rms_norm`` / ``torch.matmul`` on the active block, timed as a
    yardstick only) times, and the bound: the larger of bytes over the
-   card's memory rate and FLOPs over its peak. ``flash_attention`` runs
+   card's memory rate and FLOPs over its peak. ``subnet_rmsnorm`` runs
+   both forms (standalone, and with the residual add fused in: its sum
+   must equal ``x + delta`` bit for bit) at 8, 128 and 2048 rows with
+   bitwise repeats, then each form's device ms against the bound,
+   ``rms_norm`` (after ``torch.add`` for the fused form) and host us.
+   ``flash_attention`` runs
    every case of the card tests (ragged prompts, a window, ``kv_len`` and
    the head width read on the card, (B, S, H, d) views) with two launches
    bitwise equal and inactive heads exactly 0, then device ms at S = 16,
@@ -45,7 +53,8 @@ Phases, one result line each:
    ``sliced_matmul`` launched.
 6. Trace: where a warmed full-width prefill and decode step spend their
    time (host wall clock, device kernel time from ``torch.profiler``, the
-   device's idle share, the top kernels, the launches of each kernel),
+   device's idle share, the device kernels and ``aten::add`` calls a
+   step, the top kernels, the launches of each kernel),
    and a switch-mode prefill of the widest and the narrowest full-depth
    subnet, with the flash kernel's device ms in each.
 7. Reference: the full-width model cut to 2 layers, kernels in bf16 on the
@@ -134,6 +143,40 @@ def device_ms(torch, fn, n: int = 20):
     return "not measured"
 
 
+_NORM_TYPES = {"13__nv_bfloat16": "bf16", "6__half": "f16", "f": "f32"}
+
+
+def ptxas_entries(log: str):
+    """Each kernel of an ``nvcc -Xptxas -v`` log: its name (the norm's
+    instantiations as ``subnet_rmsnorm_kernel<type, vectors a thread,
+    delta>``), registers and spilled bytes."""
+    import re
+    entries, cur = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            name = m.group(1)
+            t = re.search(r"subnet_rmsnorm_kernelI(\w+?)Li(\d+)ELb(\d)E",
+                          name)
+            if t:
+                name = (f"subnet_rmsnorm_kernel<{_NORM_TYPES.get(t[1], t[1])}"
+                        f", {t[2]}, {'delta' if t[3] == '1' else 'no delta'}>")
+            cur = dict(kernel=name, registers=None, spill_stores=0,
+                       spill_loads=0)
+            entries.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = int(m[1]), int(m[2])
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            cur["registers"] = int(m[1])
+    return entries
+
+
 class Card:
     def __init__(self, torch):
         self.name = torch.cuda.get_device_name(0)
@@ -177,18 +220,30 @@ def phase_build(torch, card):
     probe_ms = time_ms(torch, lambda: build.copy_probe(x))
     probe_plain_ms = time_ms(torch, lambda: x.clone())
     probe_bound_ms, _ = card.bound(2 * x.numel() * 4, 0)
-    try:
-        import triton
-        triton_version = triton.__version__
-    except ImportError:
-        fail("triton is not importable; subnet_rmsnorm needs it")
-    ptxas = [ln.strip() for ln in build.ptxas_log().splitlines()
-             if "registers" in ln or "spill" in ln]
+    entries = ptxas_entries(build.ptxas_log())
+    norm = [e for e in entries if e["kernel"].startswith("subnet_rmsnorm")]
     say("build", torch=torch.__version__, cuda=torch.version.cuda,
-        triton=triton_version, device=torch.cuda.get_device_name(0),
+        device=torch.cuda.get_device_name(0),
         nvcc_builds=bc.count, build_seconds=round(build_s, 3),
         probe_ok=True, probe_ms=probe_ms, probe_plain_ms=probe_plain_ms,
-        probe_bound_ms=probe_bound_ms, ptxas=ptxas)
+        probe_bound_ms=probe_bound_ms,
+        probe_device_ms=device_ms(torch, lambda: build.copy_probe(x)),
+        probe_plain_device_ms=device_ms(torch, lambda: x.clone()),
+        ptxas=[f"{e['kernel']}: {e['registers']} registers, "
+               f"{e['spill_stores']}+{e['spill_loads']} bytes spilled"
+               for e in entries if e not in norm])
+    # the norm's main-path instantiations (bf16 at d = 1536: 2 vectors a
+    # thread) and the worst of its buckets
+    say("build-subnet_rmsnorm", instantiations=len(norm),
+        main_path=[e for e in norm if e["kernel"].startswith(
+            "subnet_rmsnorm_kernel<bf16, 2,")],
+        max_registers=max((e["registers"] for e in norm), default=None),
+        max_spill_bytes=max((e["spill_stores"] + e["spill_loads"]
+                             for e in norm), default=None),
+        spilling=[e["kernel"] for e in norm
+                  if e["spill_stores"] + e["spill_loads"]])
+    if not norm:
+        fail("no subnet_rmsnorm kernel in the ptxas log")
 
 
 # --------------------------------------------------------------------------
@@ -207,8 +262,6 @@ def _compare(torch, name, got, want):
 
 
 def phase_kernels(torch, card):
-    import torch.nn.functional as F
-    from repro_torch.kernels import subnet_rmsnorm as rn
     gen = torch.Generator(device="cuda").manual_seed(0)
     dev = "cuda"
     results = {}
@@ -217,35 +270,7 @@ def phase_kernels(torch, card):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
     # -- subnet_rmsnorm: x (B*S, 1536) at prefill, (B, 1536) at decode ----
-    d, n_sub = 1536, 18
-    gamma = 1 + 0.1 * randn(n_sub, d, dtype=torch.float32)
-    errs = []
-    for rows in (128, 8):
-        x = randn(rows, d)
-        for sid_v in (0, n_sub - 1):
-            sid = torch.full((), sid_v, dtype=torch.int32, device=dev)
-            got = rn.subnet_rmsnorm(x, gamma, sid)
-            want = rn.subnet_rmsnorm_plain(x, gamma, sid)
-            errs.append(_compare(torch, f"subnet_rmsnorm rows={rows} "
-                                        f"sid={sid_v}", got, want))
-    x = randn(128, d)
-    sid = torch.full((), n_sub - 1, dtype=torch.int32, device=dev)
-    w_row = gamma[n_sub - 1].to(x.dtype)
-    lib = getattr(F, "rms_norm", None)
-    bound, by = card.bound(2 * x.numel() * 2 + d * 4 + 4, 4 * x.numel(),
-                           fp32=True)
-    results["subnet_rmsnorm"] = dict(
-        shape=[128, d], max_abs_err=max(errs),
-        ms=time_ms(torch, lambda: rn.subnet_rmsnorm(x, gamma, sid)),
-        plain_ms=time_ms(torch, lambda: rn.subnet_rmsnorm_plain(x, gamma, sid)),
-        library_ms=(time_ms(torch, lambda: lib(x, (d,), w_row, 1e-5))
-                    if lib is not None else None),
-        bound_ms=bound, bound_by=by,
-        device_ms=device_ms(torch, lambda: rn.subnet_rmsnorm(x, gamma, sid)),
-        library_device_ms=(device_ms(torch, lambda: lib(x, (d,), w_row, 1e-5))
-                           if lib is not None else None))
-    say("kernel", name="subnet_rmsnorm", cases=len(errs),
-        **results["subnet_rmsnorm"])
+    results["subnet_rmsnorm"] = _norm_cases(torch, card, randn)
 
     # -- flash_attention: q (B,12,S,128), k/v (B,2,S,128) ------------------
     results["flash_attention"] = _flash_cases(torch, card, randn)
@@ -254,6 +279,88 @@ def phase_kernels(torch, card):
     results["decode_attention"] = _decode_cases(torch, card, randn)
     results["sliced_matmul"] = _sliced_cases(torch, card, randn)
     return results
+
+
+def norm_bound(card, rows: int, d: int, fused: bool):
+    """The bound of one SubnetNorm call on (rows, d) bf16: x (and delta)
+    read, h (and s) written, the gain row and subnet_id read once; about 4
+    FLOPs an element (5 with the add) at the fp32 rate."""
+    tensors = 4 if fused else 2
+    return card.bound(tensors * rows * d * 2 + d * 4 + 4,
+                      (5 if fused else 4) * rows * d, fp32=True)
+
+
+def _norm_cases(torch, card, randn):
+    """subnet_rmsnorm in both forms at qwen2-1.5b's width (d = 1536, 18
+    subnets, bf16) at 8 rows (a decode step), 128 (a B=8, S=16 prefill)
+    and 2048 (B=8, S=256), for the first and the last subnet: h against
+    the plain version, the fused form's s equal to ``x + delta`` bit for
+    bit, two launches bitwise equal. Then at each row count the device ms
+    of each form beside the bound and the library yardsticks (``rms_norm``
+    with the gain row for the standalone form, ``torch.add`` then
+    ``rms_norm`` for the fused one), and the wrapper's host us (least mean
+    of 10 rounds). Returns the standalone form at 128 rows (the
+    headline)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import subnet_rmsnorm as rn
+    d, n_sub, dev = 1536, 18, "cuda"
+    gamma = 1 + 0.1 * randn(n_sub, d, dtype=torch.float32)
+    errs, rows_out = [], {}
+    for rows in (8, 128, 2048):
+        x, delta = randn(rows, d), randn(rows, d)
+        for sid_v in (0, n_sub - 1):
+            sid = torch.full((), sid_v, dtype=torch.int32, device=dev)
+            label = f"subnet_rmsnorm rows={rows} sid={sid_v}"
+            h = rn.subnet_rmsnorm(x, gamma, sid)
+            errs.append(_compare(torch, label, h,
+                                 rn.subnet_rmsnorm_plain(x, gamma, sid)))
+            s, hf = rn.add_subnet_rmsnorm(x, delta, gamma, sid)
+            if not torch.equal(s, x + delta):
+                fail(f"{label} fused: s differs from x + delta")
+            errs.append(_compare(torch, label + " fused", hf,
+                                 rn.subnet_rmsnorm_plain(x + delta, gamma,
+                                                         sid)))
+            again = rn.add_subnet_rmsnorm(x, delta, gamma, sid)
+            if not (torch.equal(h, rn.subnet_rmsnorm(x, gamma, sid))
+                    and torch.equal(s, again[0]) and torch.equal(hf, again[1])):
+                fail(f"{label}: two launches gave different bits")
+        w_row = gamma[n_sub - 1].to(x.dtype)
+
+        def alone():
+            return rn.subnet_rmsnorm(x, gamma, sid)
+
+        def fused():
+            return rn.add_subnet_rmsnorm(x, delta, gamma, sid)
+        row = {}
+        for form, fn, lib in (
+                ("standalone", alone,
+                 lambda: F.rms_norm(x, (d,), w_row, 1e-5)),
+                ("fused", fused,
+                 lambda: F.rms_norm(torch.add(x, delta), (d,), w_row, 1e-5))):
+            bound, by = norm_bound(card, rows, d, form == "fused")
+            r = dict(device_ms=device_ms(torch, fn),
+                     library_device_ms=device_ms(torch, lib),
+                     bound_ms=bound, bound_by=by,
+                     host_us=host_us(torch, fn, rounds=10))
+            r["bound_share"] = (bound / r["device_ms"]
+                                if isinstance(r["device_ms"], float)
+                                else "not measured")
+            if rows == 128:
+                r.update(ms=time_ms(torch, fn), library_ms=time_ms(torch, lib))
+            row[form] = r
+        if rows == 128:
+            row["standalone"]["plain_ms"] = time_ms(
+                torch, lambda: rn.subnet_rmsnorm_plain(x, gamma, sid))
+            row["fused"]["plain_ms"] = time_ms(
+                torch, lambda: rn.add_subnet_rmsnorm_plain(x, delta, gamma,
+                                                           sid))
+        rows_out[rows] = row
+        say("kernel", name="subnet_rmsnorm", shape=[rows, d], **row)
+    say("kernel-case", name="subnet_rmsnorm", cases=len(errs),
+        max_abs_err=max(errs), checked="BF16_TOL against the plain version, "
+        "s == x + delta bit for bit, two launches bitwise equal")
+    return dict(rows_out[128]["standalone"], shape=[128, d],
+                max_abs_err=max(errs), cases=len(errs), rows=rows_out)
 
 
 def _flash_cases(torch, card, randn):
@@ -607,7 +714,7 @@ def _sliced_cases(torch, card, randn):
 PATH_KERNELS = ("subnet_rmsnorm", "flash_attention", "decode_attention",
                 "sliced_matmul")
 # device symbols of the port's kernels, as the profiler names them
-PORT_KERNEL_SYMBOLS = ("_rmsnorm_rows", "flash_fwd_kernel",
+PORT_KERNEL_SYMBOLS = ("subnet_rmsnorm_kernel", "flash_fwd_kernel",
                        "decode_attention_kernel", "sliced_matmul_kernel")
 
 
@@ -805,8 +912,9 @@ def phase_trace(torch, symbols=PORT_KERNEL_SYMBOLS):
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
                 step()
-        per_kernel = {}
+        per_kernel, adds = {}, 0
         for ev in prof.events():
+            adds += ev.name == "aten::add"
             if ev.device_type == torch.autograd.DeviceType.CUDA:
                 us = getattr(ev, "self_device_time_total", None)
                 if us is None:
@@ -827,6 +935,7 @@ def phase_trace(torch, symbols=PORT_KERNEL_SYMBOLS):
             device_idle_share=(1 - dev_ms / wall_ms) if dev_ms > 0
             else "not measured",
             device_kernels=sum(c for _, c in per_kernel.values()) / n,
+            aten_adds=adds / n,
             launches=launches[kind],
             port_kernels_ms={k: [ms, c] for k, (ms, c) in port.items()},
             top=[[name[:60], t / n / 1e3, c // n] for name, (t, c) in top])
@@ -909,7 +1018,7 @@ def phase_reference(torch):
 
 
 SOURCES = {
-    "subnet_rmsnorm": ("triton", "src/repro_torch/kernels/subnet_rmsnorm.py",
+    "subnet_rmsnorm": ("cuda", "src/repro_torch/csrc/subnet_rmsnorm.cu",
                        "src/repro/kernels/subnet_rmsnorm.py:42"),
     "flash_attention": ("cuda", "src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:100"),

@@ -5,7 +5,7 @@ The JAX package probes a chain of tiers and falls down it; the port does
 not. Which implementation runs is decided by the device of the tensors:
 
     ``cuda``  — the hand-written Hopper kernels (CUDA C++ built with
-                ``nvcc``, and Triton for SubnetNorm); CUDA tensors only
+                ``nvcc``); CUDA tensors only
     ``torch`` — the plain PyTorch versions beside each kernel; CPU
                 tensors only
 
@@ -15,9 +15,8 @@ tensor takes the plain version. ``REPRO_TORCH_KERNEL_TIER`` (or
 and a call whose device does not match it raises.
 
 The build counter is the torch twin of ``repro.compat.CompileCounter``:
-it counts every ``nvcc`` compile and every Triton kernel compile (read
-from Triton's own cache at the edges of a counted block), so a serving
-run can show that it built nothing after warmup. The launch
+it counts every ``nvcc`` compile (read at the edges of a counted block),
+so a serving run can show that it built nothing after warmup. The launch
 counter counts kernel launches per kernel name, so a run can show that
 its main path went through the kernels.
 """
@@ -26,7 +25,7 @@ from __future__ import annotations
 import os
 import threading
 from collections import Counter
-from typing import Callable, Dict, List, Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -134,7 +133,6 @@ def reset_kernel_tier() -> None:
 
 _counter_lock = threading.Lock()
 _build_events = 0
-_build_sources: List[Callable[[], int]] = []
 _launches: Counter = Counter()
 
 
@@ -145,17 +143,9 @@ def note_build(n: int = 1) -> None:
         _build_events += n
 
 
-def register_build_source(count: Callable[[], int]) -> None:
-    """Add a callable returning the builds a JIT compiler has made so far
-    (the Triton kernels register their compiled-variant count). It is read
-    only at the edges of a :class:`BuildCounter` block, never per launch."""
-    _build_sources.append(count)
-
-
 def builds() -> int:
-    """Kernel builds made so far in this process: nvcc compiles plus every
-    registered source's count."""
-    return _build_events + sum(count() for count in _build_sources)
+    """Kernel builds (nvcc compiles) made so far in this process."""
+    return _build_events
 
 
 class BuildCounter:

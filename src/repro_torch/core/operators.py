@@ -5,8 +5,10 @@
   layer gates of the control tuple stay host numpy and the backbone walks
   them in Python: a gated-off layer launches nothing and costs no sync.
 * :func:`subnet_norm` — SubnetNorm: normalization with per-subnet gain
-  (and optional bias) rows picked by ``subnet_id``. The plain RMS flavor
-  goes through the kernel entry point (Triton on CUDA).
+  (and optional bias) rows picked by ``subnet_id``, optionally after the
+  pending residual add. The RMS flavor without bias goes through the
+  kernel entry points (the CUDA kernel on the card, which also fuses the
+  add).
 * :func:`sliced_matmul` / :func:`slice_mask` — WeightSlice. Two modes:
   ``mask``   : full-shape matmul with channel masks (full FLOPs);
   ``switch`` : the ``sliced_matmul`` kernel over the active prefix. JAX
@@ -68,12 +70,25 @@ def layer_select(gate, block_fn: Callable, x):
 
 
 def subnet_norm(x, gamma_table, subnet_id, *, beta_table=None,
-                eps: float = 1e-5, kind: str = "rmsnorm"):
+                eps: float = 1e-5, kind: str = "rmsnorm", residual=None):
     """Normalize ``x`` with the per-subnet rows of ``gamma_table``
-    (n_subnets, d) and, optionally, ``beta_table``."""
+    (n_subnets, d) and, optionally, ``beta_table``.
+
+    With ``residual`` (x's shape and type) the pending residual add comes
+    first and the result is ``(s, h)``: ``s = x + residual`` and ``h`` the
+    norm of ``s``. The RMS flavor without bias does both in one kernel
+    launch on the card; the other flavors add, then normalize."""
     if kind == "rmsnorm" and beta_table is None:
         from repro_torch.kernels import ops as kops
-        return kops.model_subnet_rmsnorm(x, gamma_table, subnet_id, eps=eps)
+        if residual is None:
+            return kops.model_subnet_rmsnorm(x, gamma_table, subnet_id,
+                                             eps=eps)
+        return kops.model_add_subnet_rmsnorm(x, residual, gamma_table,
+                                             subnet_id, eps=eps)
+    if residual is not None:
+        s = x + residual
+        return s, subnet_norm(s, gamma_table, subnet_id,
+                              beta_table=beta_table, eps=eps, kind=kind)
     gamma = take_row(gamma_table, subnet_id)
     xf = x.float()
     if kind == "rmsnorm":

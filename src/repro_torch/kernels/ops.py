@@ -70,6 +70,18 @@ def _rmsnorm_torch(x, gamma_table, subnet_id, *, eps):
     return _rmsnorm.subnet_rmsnorm_plain(x, gamma_table, subnet_id, eps=eps)
 
 
+@register("add_subnet_rmsnorm", "cuda")
+def _add_rmsnorm_cuda(x, delta, gamma_table, subnet_id, *, eps):
+    return _rmsnorm.add_subnet_rmsnorm(x, delta, gamma_table, subnet_id,
+                                       eps=eps)
+
+
+@register("add_subnet_rmsnorm", "torch")
+def _add_rmsnorm_torch(x, delta, gamma_table, subnet_id, *, eps):
+    return _rmsnorm.add_subnet_rmsnorm_plain(x, delta, gamma_table,
+                                             subnet_id, eps=eps)
+
+
 # --------------------------------------------------------------------------
 # public entry points
 # --------------------------------------------------------------------------
@@ -106,6 +118,15 @@ def sliced_matmul(x, w, active_in, active_out, *, segments=1, bm=128, bk=128,
 def subnet_rmsnorm(x, gamma_table, subnet_id, *, eps=1e-5, tier=None):
     return DISPATCHER.call(
         "subnet_rmsnorm", x, gamma_table, subnet_id, eps=eps, tier=tier)
+
+
+def add_subnet_rmsnorm(x, delta, gamma_table, subnet_id, *, eps=1e-5,
+                       tier=None):
+    """``(s, h)``: ``s = x + delta`` in x's type and ``h`` its SubnetNorm,
+    in one launch on the card (see ``kernels/subnet_rmsnorm.py``)."""
+    return DISPATCHER.call(
+        "add_subnet_rmsnorm", x, delta, gamma_table, subnet_id, eps=eps,
+        tier=tier)
 
 
 # --------------------------------------------------------------------------
@@ -150,4 +171,10 @@ def model_decode_attention(q, k_cache, v_cache, *, index, window=0,
 def model_subnet_rmsnorm(x, gamma_table, subnet_id, *, eps=1e-5):
     """SubnetNorm (RMS flavor) for model blocks."""
     return subnet_rmsnorm(x, gamma_table, subnet_id, eps=eps)
+
+
+def model_add_subnet_rmsnorm(x, delta, gamma_table, subnet_id, *, eps=1e-5):
+    """The previous block's residual add and this block's SubnetNorm (RMS
+    flavor): ``(s, h)``."""
+    return add_subnet_rmsnorm(x, delta, gamma_table, subnet_id, eps=eps)
 

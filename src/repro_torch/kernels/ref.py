@@ -231,3 +231,11 @@ def subnet_rmsnorm_ref(x, gamma_table, subnet_id, eps: float = 1e-5):
     xf = x.float()
     y = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
     return (y * gamma.float()).to(x.dtype)
+
+
+def add_subnet_rmsnorm_ref(x, delta, gamma_table, subnet_id,
+                           eps: float = 1e-5):
+    """SubnetNorm with the pending residual add in front: ``(s, h)`` with
+    ``s = x + delta`` (rounded to x's type) and ``h`` the norm of ``s``."""
+    s = x + delta
+    return s, subnet_rmsnorm_ref(s, gamma_table, subnet_id, eps=eps)

@@ -1,24 +1,35 @@
-"""SubnetNorm as a Triton kernel: RMSNorm whose gain row is picked from the
-per-subnet table by a ``subnet_id`` read from device memory.
+"""SubnetNorm: the CUDA kernel, its wrapper and its plain version.
 
-Replaces the Pallas TPU kernel ``repro/kernels/subnet_rmsnorm.py``
-(``subnet_rmsnorm``, ``_kernel``). One program per row: the row is loaded
-once, reduced in fp32, scaled by ``rsqrt(mean(x^2) + eps)`` and by the
-gain row, and stored in the input's dtype; ``BLOCK_D`` is ``d`` rounded up
-to a power of two and masked. Switching subnets changes one int32 in
-device memory, never the compiled kernel.
+The kernel (``csrc/subnet_rmsnorm.cu``) replaces the Pallas TPU kernel
+``repro/kernels/subnet_rmsnorm.py`` (``subnet_rmsnorm`` at :27, its
+``pallas_call`` at :42): RMSNorm of each row, in fp32, times the gain row
+``gamma_table[subnet_id]``, where ``subnet_id`` is read from device
+memory, so switching subnets changes one int32 and never the launch.
 
-What bounds it: it reads each input once and writes each output once with
-a few FLOPs per element, so it is memory-bound; at serving shapes (a few
-hundred rows of 1536) its time is launch latency.
+Two entry points launch the same kernel:
 
-``triton`` is imported at the first launch, never at module import: hosts
-without a GPU import this module for the plain version.
+* :func:`subnet_rmsnorm` ``(x, gamma_table, subnet_id) -> h``, the JAX
+  function's counterpart;
+* :func:`add_subnet_rmsnorm` ``(x, delta, gamma_table, subnet_id) ->
+  (s, h)``: the pending residual add fused in front, ``s = x + delta``
+  (an fp32 add rounded once to x's type, bit for bit ``torch.add``) and
+  ``h`` the norm of that rounded ``s``. The model's blocks hand their
+  output to the next block's pre-norm this way, so the residual add costs
+  no launch of its own.
+
+What bounds it on the H100: bytes (each element read once or twice and
+written once or twice for a few FLOPs); at the served shapes a call is
+its launch plus one chain of dependent loads. Design: one block of four
+warps a row, the row held in registers as 16-byte vectors, the sum of
+squares reduced with warp shuffles and one barrier (see the source). It
+takes bf16, fp16 and fp32, ``d`` a multiple of 8, 16-byte aligned rows.
+
+On a CUDA tensor the wrappers launch the kernel or raise; CPU tensors
+take the plain versions through :mod:`repro_torch.kernels.ops`.
 """
 from __future__ import annotations
 
-import os
-import threading
+import ctypes
 
 import torch
 
@@ -26,50 +37,11 @@ from repro_torch import compat
 from repro_torch.kernels import build, ref
 
 NAME = "subnet_rmsnorm"
-tl = None               # triton.language, bound at the first launch
-_jit = None
-_lock = threading.Lock()
-
-
-def _rmsnorm_rows(x_ptr, g_ptr, sid_ptr, o_ptr, eps,
-                  D: tl.constexpr, BLOCK_D: tl.constexpr):
-    row = tl.program_id(0)
-    cols = tl.arange(0, BLOCK_D)
-    live = cols < D
-    x = tl.load(x_ptr + row * D + cols, mask=live, other=0.0).to(tl.float32)
-    y = x * tl.rsqrt(tl.sum(x * x, axis=0) / D + eps)
-    sid = tl.load(sid_ptr)
-    g = tl.load(g_ptr + sid * D + cols, mask=live, other=0.0).to(tl.float32)
-    tl.store(o_ptr + row * D + cols, (y * g).to(o_ptr.dtype.element_ty),
-             mask=live)
-
-
-def _compiled_variants() -> int:
-    """Specializations Triton has compiled for the kernel in this process;
-    read by :class:`repro_torch.compat.BuildCounter` at a phase's edges."""
-    jit_fn = _jit
-    if jit_fn is None:
-        return 0
-    caches = getattr(jit_fn, "device_caches", None)
-    if caches is not None:
-        return sum(len(entry[0]) for entry in list(caches.values()))
-    return sum(len(c) for c in list(jit_fn.cache.values()))
-
-
-compat.register_build_source(_compiled_variants)
-
-
-def _kernel():
-    global tl, _jit
-    if _jit is None:
-        with _lock:
-            if _jit is None:
-                os.environ.setdefault("TRITON_CACHE_DIR",
-                                      str(build.BUILD_ROOT / "triton"))
-                import triton
-                import triton.language as tl
-                _jit = triton.jit(_rmsnorm_rows)
-    return _jit
+_C = {torch.bfloat16: "repro_subnet_rmsnorm_bf16",
+      torch.float16: "repro_subnet_rmsnorm_f16",
+      torch.float32: "repro_subnet_rmsnorm_f32"}
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
+                                     ctypes.c_float, ctypes.c_void_p]
 
 
 def subnet_rmsnorm_plain(x, gamma_table, subnet_id, *, eps: float = 1e-5):
@@ -77,36 +49,68 @@ def subnet_rmsnorm_plain(x, gamma_table, subnet_id, *, eps: float = 1e-5):
     return ref.subnet_rmsnorm_ref(x, gamma_table, subnet_id, eps=eps)
 
 
+def add_subnet_rmsnorm_plain(x, delta, gamma_table, subnet_id, *,
+                             eps: float = 1e-5):
+    """The plain version of the fused form: ``s = x + delta``, then the
+    norm of ``s``."""
+    return ref.add_subnet_rmsnorm_ref(x, delta, gamma_table, subnet_id,
+                                      eps=eps)
+
+
 def subnet_rmsnorm(x, gamma_table, subnet_id, *, eps: float = 1e-5):
-    """x: (..., d) CUDA bf16/fp16/fp32, contiguous; gamma_table: (n, d)
-    fp32 contiguous; subnet_id: int32 CUDA tensor with one element."""
+    """x: (..., d) contiguous CUDA bf16/fp16/fp32; gamma_table: (n, d)
+    fp32 contiguous; subnet_id: one int32 on x's device. Returns h, x's
+    shape and type."""
+    return _run(x, None, gamma_table, subnet_id, eps)
+
+
+def add_subnet_rmsnorm(x, delta, gamma_table, subnet_id, *,
+                       eps: float = 1e-5):
+    """``(s, h)`` with ``s = x + delta`` and ``h`` the norm of ``s``; delta
+    of x's shape, type and device, contiguous. Both are views of one
+    ``(2, *x.shape)`` allocation."""
+    if not isinstance(delta, torch.Tensor) or delta.shape != x.shape \
+            or delta.dtype != x.dtype or delta.device != x.device \
+            or not delta.is_contiguous():
+        raise ValueError(f"{NAME}: delta must be a contiguous tensor of x's "
+                         f"shape {tuple(x.shape)}, type and device")
+    out = _run(x, delta, gamma_table, subnet_id, eps)
+    return out[0], out[1]
+
+
+def _run(x, delta, gamma_table, subnet_id, eps):
+    """Checks, allocates the output and launches once."""
     if x.device.type != "cuda":
         raise ValueError(f"{NAME}: kernel needs CUDA tensors, got {x.device}")
-    if x.dtype not in (torch.bfloat16, torch.float16, torch.float32):
+    c_name = _C.get(x.dtype)
+    if c_name is None:
         raise TypeError(f"{NAME}: unsupported dtype {x.dtype}")
-    if not isinstance(subnet_id, torch.Tensor) or subnet_id.numel() != 1 \
-            or subnet_id.dtype != torch.int32:
-        raise TypeError(f"{NAME}: subnet_id must be a one-element int32 "
-                        f"tensor on the device")
     d = x.shape[-1]
+    if d % 8 or not x.is_contiguous():
+        raise ValueError(f"{NAME}: x must be contiguous with a last dim that "
+                         f"is a multiple of 8, got {tuple(x.shape)}")
     if gamma_table.dim() != 2 or gamma_table.shape[1] != d \
-            or gamma_table.dtype != torch.float32:
-        raise ValueError(f"{NAME}: gamma_table must be fp32 (n, {d}), got "
-                         f"{gamma_table.dtype} {tuple(gamma_table.shape)}")
-    for name, t in (("x", x), ("gamma_table", gamma_table),
-                    ("subnet_id", subnet_id)):
-        if t.device != x.device:
-            raise ValueError(f"{NAME}: {name} on {t.device}, x on {x.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{NAME}: {name} must be contiguous")
-    out = torch.empty_like(x)
+            or gamma_table.dtype != torch.float32 \
+            or not gamma_table.is_contiguous() \
+            or gamma_table.device != x.device:
+        raise ValueError(f"{NAME}: gamma_table must be contiguous fp32 "
+                         f"(n, {d}) on {x.device}, got {gamma_table.dtype} "
+                         f"{tuple(gamma_table.shape)} on {gamma_table.device}")
+    if not isinstance(subnet_id, torch.Tensor) or subnet_id.numel() != 1 \
+            or subnet_id.dtype != torch.int32 or subnet_id.device != x.device:
+        raise TypeError(f"{NAME}: subnet_id must be one int32 on {x.device}")
+    out = torch.empty(x.shape if delta is None else (2, *x.shape),
+                      dtype=x.dtype, device=x.device)
     rows = x.numel() // d if d else 0
     if rows == 0:
         return out
-    block_d = 1 << (d - 1).bit_length()
-    kernel = _kernel()
-    with torch.cuda.device(x.device):
-        kernel[(rows,)](x, gamma_table, subnet_id, out, float(eps),
-                        D=d, BLOCK_D=block_d, num_warps=8 if d > 2048 else 4)
+    px, pg = x.data_ptr(), gamma_table.data_ptr()
+    pd = 0 if delta is None else delta.data_ptr()
+    if (px | pg | pd) & 15:
+        raise ValueError(f"{NAME}: x, delta and gamma_table must be 16-byte "
+                         f"aligned")
+    build.check(NAME, build.function(c_name, _ARGTYPES)(
+        px, pd or None, pg, subnet_id.data_ptr(), out.data_ptr(), rows, d,
+        eps, torch._C._cuda_getCurrentRawStream(x.get_device())))
     compat.note_launch(NAME)
     return out

@@ -29,7 +29,7 @@ from repro_torch.core import operators as ops
 from repro_torch.core.subnet import head_group_size
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
-from repro_torch.models.common import dense_init, ones_table
+from repro_torch.models.common import dense_init, ones_table, pre_norm
 
 # --------------------------------------------------------------------------
 # Rotary embeddings
@@ -152,14 +152,26 @@ def attention_block(p, cfg: ArchConfig, x, ctrl, positions, *,
 
     ``attn_impl=None`` takes the kernel entry point for the device of
     ``x``; pass an impl to pin one (tests)."""
+    s, y = attention_block_pending(p, cfg, x, None, ctrl, positions,
+                                   slice_mode=slice_mode, attn_impl=attn_impl,
+                                   q_block=q_block, kv_block=kv_block)
+    return s + y
+
+
+def attention_block_pending(p, cfg: ArchConfig, x, delta, ctrl, positions, *,
+                            slice_mode: str = "mask", attn_impl=None,
+                            q_block: int = 512, kv_block: int = 512):
+    """:func:`attention_block` with the previous block's residual add still
+    pending: returns ``(s, y)``, where ``s = x + delta`` is this block's
+    input residual (the add fused into the pre-norm; ``delta`` None means
+    ``s = x``) and ``y`` is this block's output in x's type, not yet added
+    (the block's result is ``s + y``)."""
     ops.check_slice_mode(slice_mode)
     if attn_impl is None:
         from repro_torch.kernels.ops import model_flash_attention
         attn_impl = partial(model_flash_attention, q_block=q_block,
                             kv_block=kv_block)
-    h = ops.subnet_norm(x, p["norm_gamma"], ctrl["subnet_id"],
-                        beta_table=p.get("norm_beta"), eps=cfg.norm_eps,
-                        kind=cfg.norm)
+    s, h = pre_norm(p, cfg, x, delta, ctrl)
     q, k, v = _project_qkv(p, cfg, h, positions)
     B, S, Hq, hd = q.shape
     switch = slice_mode == "switch" and len(cfg.elastic.head_fracs) > 1
@@ -175,12 +187,12 @@ def attention_block(p, cfg: ArchConfig, x, ctrl, positions, *,
         y = kops.sliced_matmul(o.reshape(B * S, Hq * hd), p["wo"],
                                with_wo_width(cfg, ctrl)[WO_WIDTH], None,
                                segments=wo_segments(cfg))
-        return x + y.reshape(B, S, -1).to(x.dtype)
+        return s, y.reshape(B, S, -1).to(s.dtype)
     # WeightSlice(mask): zero the *outputs* of inactive heads —
     # paper-faithful routing (inactive channels contribute nothing).
     o = head_mask(cfg, o, ctrl["head_width"])
     y = o.reshape(B, S, Hq * hd) @ p["wo"]
-    return x + y.to(x.dtype)
+    return s, y.to(s.dtype)
 
 
 def attention_decode(p, cfg: ArchConfig, x, ctrl, cache, index, *,
@@ -190,13 +202,24 @@ def attention_decode(p, cfg: ArchConfig, x, ctrl, cache, index, *,
     ``index``: 0-d int32 tensor on x's device (the new token's absolute
     position). Unlike the functional JAX version, the new k/v are written
     into ``cache`` in place; the returned dict holds the same tensors."""
+    s, y = attention_decode_pending(p, cfg, x, None, ctrl, cache, index,
+                                    slice_mode=slice_mode,
+                                    decode_impl=decode_impl,
+                                    kv_block=kv_block)
+    return s + y, {"k": cache["k"], "v": cache["v"]}
+
+
+def attention_decode_pending(p, cfg: ArchConfig, x, delta, ctrl, cache,
+                             index, *, slice_mode: str = "mask",
+                             decode_impl=None, kv_block: int = 512):
+    """:func:`attention_decode` with the previous block's residual add
+    pending, as :func:`attention_block_pending`: returns ``(s, y)`` and
+    updates ``cache`` in place."""
     ops.check_slice_mode(slice_mode)
     if decode_impl is None:
         from repro_torch.kernels.ops import model_decode_attention
         decode_impl = partial(model_decode_attention, kv_block=kv_block)
-    h = ops.subnet_norm(x, p["norm_gamma"], ctrl["subnet_id"],
-                        beta_table=p.get("norm_beta"), eps=cfg.norm_eps,
-                        kind=cfg.norm)
+    s, h = pre_norm(p, cfg, x, delta, ctrl)
     B = x.shape[0]
     positions = index.reshape(1, 1).expand(B, 1)
     q, k, v = _project_qkv(p, cfg, h, positions)
@@ -211,7 +234,7 @@ def attention_decode(p, cfg: ArchConfig, x, ctrl, cache, index, *,
     o = o.transpose(1, 2)                               # (B,1,H,hd)
     o = head_mask(cfg, o, ctrl["head_width"])
     y = o.reshape(B, 1, cfg.n_heads * cfg.resolved_head_dim) @ p["wo"]
-    return x + y.to(x.dtype), {"k": k_cache, "v": v_cache}
+    return s, y.to(s.dtype)
 
 
 def init_attention_cache(cfg: ArchConfig, batch: int, seq_len: int, dtype,

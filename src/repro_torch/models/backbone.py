@@ -6,7 +6,10 @@ Parameters of each stage keep the JAX layout, stacked along a leading
 ``repeat`` axis; layer ``r`` reads views ``leaf[r]``. The JAX backbone
 scans over layers inside one executable and gates each with ``lax.cond``;
 here the layer gates are host numpy (see ``core.operators.layer_select``)
-and the walk is Python, so a gated-off layer launches nothing.
+and the walk is Python, so a gated-off layer launches nothing. Each
+block's residual add is left pending and made by the next block's
+pre-norm (one SubnetNorm launch on the card), so a walk makes one
+residual add of its own, at the end.
 """
 from __future__ import annotations
 
@@ -76,31 +79,45 @@ def _gates(cfg: ArchConfig, ctrl) -> np.ndarray:
 # --------------------------------------------------------------------------
 
 
+def _settle(pair):
+    """The residual stream of a ``(x, delta)`` pair: ``x + delta``, the one
+    residual add of a walk that no pre-norm took."""
+    x, delta = pair
+    return x if delta is None else x + delta
+
+
 def backbone_forward(params, cfg: ArchConfig, x, ctrl, positions, *,
                      slice_mode: str = "mask", attn_impl=None):
     """x: (B, S, d) -> (B, S, d). ``attn_impl=None`` takes the kernel
-    entry point for x's device; pass one to pin an impl (tests)."""
+    entry point for x's device; pass one to pin an impl (tests).
+
+    The walk carries the pair ``(x, delta)``: each block's output ``delta``
+    is added to the residual stream by the next block's pre-norm, in the
+    same launch (see ``attention.attention_block_pending``); a gated-off
+    unit passes the pair on, and the last pending add is made once before
+    returning."""
     _check_ported(cfg)
     gates = _gates(cfg, ctrl)
     offset = 0
+    pair = (x, None)
     for si, stage in enumerate(cfg.stages):
         sp = params["stages"][si]
         for r in range(stage.repeat):
-            def unit(xx, r=r, stage=stage, sp=sp):
+            def unit(xd, r=r, stage=stage, sp=sp):
                 for j, kind in enumerate(stage.pattern):
                     p = unstack(sp[_slot(j, kind)], r)
                     if kind == "attn":
-                        xx = attn_mod.attention_block(
-                            p, cfg, xx, ctrl, positions,
+                        xd = attn_mod.attention_block_pending(
+                            p, cfg, *xd, ctrl, positions,
                             slice_mode=slice_mode, attn_impl=attn_impl)
                     else:
-                        xx = ffn_mod.mlp_block(p, cfg, xx, ctrl,
-                                               slice_mode=slice_mode)
-                return xx
+                        xd = ffn_mod.mlp_block_pending(
+                            p, cfg, *xd, ctrl, slice_mode=slice_mode)
+                return xd
 
-            x = layer_select(gates[offset + r], unit, x)
+            pair = layer_select(gates[offset + r], unit, pair)
         offset += stage.repeat
-    return x
+    return _settle(pair)
 
 
 # --------------------------------------------------------------------------
@@ -136,27 +153,29 @@ def backbone_decode(params, cfg: ArchConfig, x, ctrl, cache, index, *,
                     slice_mode: str = "mask"):
     """One-token decode. x: (B, 1, d) -> ((B, 1, d), cache). ``index``:
     0-d int32 tensor on x's device. The cache is updated in place (the
-    JAX version returns a new tree); the returned tree is ``cache``."""
+    JAX version returns a new tree); the returned tree is ``cache``. The
+    residual adds are carried as in :func:`backbone_forward`."""
     _check_ported(cfg)
     gates = _gates(cfg, ctrl)
     offset = 0
+    pair = (x, None)
     for si, stage in enumerate(cfg.stages):
         sp = params["stages"][si]
         sc = cache["stages"][si]
         for r in range(stage.repeat):
-            def unit(xx, r=r, stage=stage, sp=sp, sc=sc):
+            def unit(xd, r=r, stage=stage, sp=sp, sc=sc):
                 for j, kind in enumerate(stage.pattern):
                     slot = _slot(j, kind)
                     p = unstack(sp[slot], r)
                     if kind == "attn":
-                        xx, _ = attn_mod.attention_decode(
-                            p, cfg, xx, ctrl, unstack(sc[slot], r), index,
+                        xd = attn_mod.attention_decode_pending(
+                            p, cfg, *xd, ctrl, unstack(sc[slot], r), index,
                             slice_mode=slice_mode)
                     else:
-                        xx = ffn_mod.mlp_block(p, cfg, xx, ctrl,
-                                               slice_mode=slice_mode)
-                return xx
+                        xd = ffn_mod.mlp_block_pending(
+                            p, cfg, *xd, ctrl, slice_mode=slice_mode)
+                return xd
 
-            x = layer_select(gates[offset + r], unit, x)
+            pair = layer_select(gates[offset + r], unit, pair)
         offset += stage.repeat
-    return x, cache
+    return _settle(pair), cache

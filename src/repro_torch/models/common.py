@@ -15,6 +15,8 @@ from typing import Any, Callable, Dict
 import numpy as np
 import torch
 
+from repro_torch.core import operators as ops
+
 Params = Dict[str, Any]
 
 
@@ -48,3 +50,15 @@ def stack_init(init_fn: Callable[[], Dict], repeat: int) -> Dict:
 def unstack(stacked: Dict, r: int) -> Dict:
     """The ``r``-th layer of a stacked sub-block (views, no copies)."""
     return {k: v[r] for k, v in stacked.items()}
+
+
+def pre_norm(p: Params, cfg, x, delta, ctrl):
+    """A block's pre-norm with the previous block's pending residual add in
+    front: ``(s, h)``, where ``s = x + delta`` (``x`` itself when ``delta``
+    is None) is the block's input residual and ``h`` its SubnetNorm. On the
+    card the RMS flavor does both in one launch."""
+    kw = dict(beta_table=p.get("norm_beta"), eps=cfg.norm_eps, kind=cfg.norm)
+    if delta is None:
+        return x, ops.subnet_norm(x, p["norm_gamma"], ctrl["subnet_id"], **kw)
+    return ops.subnet_norm(x, p["norm_gamma"], ctrl["subnet_id"],
+                           residual=delta, **kw)

@@ -18,7 +18,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import operators as ops
 from repro_torch.kernels import ops as kops
-from repro_torch.models.common import dense_init, ones_table
+from repro_torch.models.common import dense_init, ones_table, pre_norm
 
 
 def init_mlp(cfg: ArchConfig, dtype, generator, device) -> Dict:
@@ -39,10 +39,18 @@ def init_mlp(cfg: ArchConfig, dtype, generator, device) -> Dict:
 
 def mlp_block(p, cfg: ArchConfig, x, ctrl, *, slice_mode: str = "mask"):
     """Pre-norm SwiGLU/GELU FFN with elastic d_ff. x: (..., d) -> (..., d)."""
+    s, y = mlp_block_pending(p, cfg, x, None, ctrl, slice_mode=slice_mode)
+    return s + y
+
+
+def mlp_block_pending(p, cfg: ArchConfig, x, delta, ctrl, *,
+                      slice_mode: str = "mask"):
+    """:func:`mlp_block` with the previous block's residual add pending:
+    returns ``(s, y)``, where ``s = x + delta`` is this block's input
+    residual (the add fused into the pre-norm; ``delta`` None means
+    ``s = x``) and ``y`` this block's output in x's type, not yet added."""
     ops.check_slice_mode(slice_mode)
-    h = ops.subnet_norm(x, p["norm_gamma"], ctrl["subnet_id"],
-                        beta_table=p.get("norm_beta"), eps=cfg.norm_eps,
-                        kind=cfg.norm)
+    s, h = pre_norm(p, cfg, x, delta, ctrl)
     if slice_mode == "switch" and len(cfg.elastic.ffn_fracs) > 1:
         width = ctrl["ffn_width"]
         up = kops.sliced_matmul(h, p["wu"], None, width)
@@ -51,7 +59,7 @@ def mlp_block(p, cfg: ArchConfig, x, ctrl, *, slice_mode: str = "mask"):
         else:
             a = F.gelu(up, approximate="tanh")
         y = kops.sliced_matmul(a, p["wd"], width, None)
-        return x + y.to(x.dtype)
+        return s, y.to(s.dtype)
     if cfg.ffn_act == "swiglu":
         a = F.silu(h @ p["wg"]) * (h @ p["wu"])
     else:
@@ -60,4 +68,4 @@ def mlp_block(p, cfg: ArchConfig, x, ctrl, *, slice_mode: str = "mask"):
     # makes the down-proj rows for those channels inert.
     a = ops.slice_mask(a, ctrl["ffn_width"])
     y = a @ p["wd"]
-    return x + y.to(x.dtype)
+    return s, y.to(s.dtype)

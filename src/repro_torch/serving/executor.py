@@ -19,9 +19,9 @@
 * **Bounded entry cache** — one entry per ``(kind, bucket_batch,
   bucket_seq, tier)`` in an LRU with hit/miss/build/eviction counters
   (surfaced via ``Router.stats()["executor"]``). Building an entry runs
-  the step once at its shape, which compiles every Triton specialization
-  the shape needs and loads the CUDA library; the ``compiles`` counter
-  counts entry builds and ``kernel_builds`` the kernel builds they caused.
+  the step once at its shape, which builds and loads the CUDA library at
+  first use; the ``compiles`` counter counts entry builds and
+  ``kernel_builds`` the kernel builds they caused.
 * **Warmup** — :meth:`SubnetExecutor.warmup` builds every bucket the
   profile lets the policy choose, off the serving path, so no serving call
   builds a kernel (``repro_torch.compat.BuildCounter`` shows it).

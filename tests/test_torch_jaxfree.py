@@ -1,7 +1,9 @@
-"""The port imports neither JAX nor the JAX package: every module of
-``repro_torch`` and ``chip_smoke.py`` import in a fresh interpreter whose
-meta-path finder refuses ``jax``, ``jaxlib``, ``repro`` and their
-submodules (exact names, so ``repro_torch`` itself passes)."""
+"""The port imports neither JAX nor the JAX package, nor ``triton``: every
+module of ``repro_torch`` and ``chip_smoke.py`` import in a fresh
+interpreter whose meta-path finder refuses ``jax``, ``jaxlib``,
+``repro``, ``triton`` and their submodules (exact names, so
+``repro_torch`` itself passes), and no source of the port or its tools
+imports them."""
 import ast
 import os
 import subprocess
@@ -9,7 +11,7 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-BLOCKED = ("jax", "jaxlib", "repro")
+BLOCKED = ("jax", "jaxlib", "repro", "triton")
 
 _CHILD = r"""
 import importlib, importlib.util, pkgutil, sys
@@ -48,7 +50,7 @@ def test_port_imports_without_jax_or_repro():
 def test_no_source_names_jax_or_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py", ROOT / "tools" / "flash_bench.py",
-              ROOT / "tools" / "decode_bench.py"]
+              ROOT / "tools" / "decode_bench.py", ROOT / "tools" / "norm_bench.py"]
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):

@@ -16,6 +16,7 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch import compat
+from repro_torch.kernels import build
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
@@ -198,6 +199,29 @@ def test_subnet_rmsnorm_plain_matches_jax(M, d, S, dtype):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("M,d,S", [(64, 128, 4), (100, 256, 9), (7, 512, 2)])
+def test_add_subnet_rmsnorm_plain_matches_jax(M, d, S, dtype):
+    """The fused form through ``ops`` against JAX ``x + y`` followed by the
+    Pallas kernel (interpret) and the dense oracle; its sum is exactly
+    ``x + y`` in the working type."""
+    rng = np.random.default_rng(4)
+    jx, tx = _pair(rng, (M, d), dtype)
+    jy, ty = _pair(rng, (M, d), dtype)
+    jg, tg = _pair(rng, (S, d), "float32")
+    js = jx + jy
+    for sid in (0, S - 1):
+        want_k = jops.subnet_rmsnorm(js, jg, jnp.int32(sid), tier="interpret")
+        want_d = jref.subnet_rmsnorm_ref(js, jg, sid)
+        s, h = ops.add_subnet_rmsnorm(tx, ty, tg,
+                                      torch.tensor(sid, dtype=torch.int32))
+        assert s.dtype == tx.dtype and h.dtype == tx.dtype
+        assert torch.equal(s, tx + ty)
+        np.testing.assert_array_equal(_np(s), _np(js))
+        _close(h, want_k, dtype)
+        _close(h, want_d, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("M,K,N", [(64, 256, 384), (8, 128, 128)])
 def test_sliced_matmul_plain_matches_jax(M, K, N, dtype):
     rng = np.random.default_rng(4)
@@ -257,7 +281,7 @@ def test_sliced_matmul_segments_match_jax_gqa_projection(kv, group, hd, dtype):
 
 def test_cpu_tensor_takes_the_torch_tier():
     for name in ("flash_attention", "decode_attention", "subnet_rmsnorm",
-                 "sliced_matmul"):
+                 "add_subnet_rmsnorm", "sliced_matmul"):
         tier, _ = DISPATCHER.resolve(name, torch.device("cpu"))
         assert tier == "torch"
 
@@ -318,22 +342,37 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         rn.subnet_rmsnorm(q, torch.ones((1, 128)),
                           torch.tensor([0], dtype=torch.int32))
     with pytest.raises(ValueError, match="CUDA"):
+        rn.add_subnet_rmsnorm(q, q, torch.ones((1, 128)),
+                              torch.tensor([0], dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA"):
         sm.sliced_matmul(q[0, 0], q[0, 0].T, None, None)
 
 
-def test_build_counter_reads_triton_builds_at_its_edges(monkeypatch):
-    """The Triton kernel's compiled variants are counted by BuildCounter at
-    the block's edges, with nvcc builds, and never by the launch path."""
-    assert rn._compiled_variants in compat._build_sources
-    jit_builds = [0]
-    monkeypatch.setattr(compat, "_build_sources", [lambda: jit_builds[0]])
+def test_build_counter_reads_triton_builds_at_its_edges(monkeypatch, tmp_path):
+    """Kernel builds are the nvcc compiles of ``build.library`` (one per
+    source, started together, here through a stand-in ``nvcc`` that only
+    writes its output), read by BuildCounter at the block's edges and never
+    by the launch path: a launch adds a launch, not a build."""
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text('#!/bin/sh\nwhile [ $# -gt 0 ]; do\n'
+                    '  if [ "$1" = "-o" ]; then : > "$2"; fi; shift\n'
+                    'done\n')
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("CUDACXX", str(nvcc))
+    monkeypatch.setattr(build, "BUILD_ROOT", tmp_path / "build")
+    reads = []
+    edge = compat.builds
+    monkeypatch.setattr(compat, "builds", lambda: reads.append(1) or edge())
     with compat.BuildCounter() as bc:
-        jit_builds[0] += 2
-        compat.note_build(1)
-    assert bc.count == 3
+        lib = build._build(tmp_path / "build" / "kernels-test")
+        compat.note_launch("subnet_rmsnorm")
+    assert lib.is_file() and lib.name == build.LIB_NAME
+    assert [p.name for p in build.sources()].count("subnet_rmsnorm.cu") == 1
+    assert bc.count == len(build.sources()) and len(reads) == 2
     with compat.BuildCounter() as bc:
-        pass
-    assert bc.count == 0
+        for _ in range(3):
+            compat.note_launch("subnet_rmsnorm")
+    assert bc.count == 0 and len(reads) == 4
 
 
 def test_decode_split_plan_covers_the_cache():

@@ -191,17 +191,136 @@ def test_decode_attention_kernel_refuses_a_split_past_a_cluster(cuda):
     torch.testing.assert_close(out.float(), torch.ones_like(out.float()))
 
 
-def test_subnet_rmsnorm_kernel_matches_plain(cuda):
-    gen = torch.Generator(device=cuda).manual_seed(2)
-    gamma = 1 + 0.1 * _randn(gen, 18, 1536, dev=cuda, dtype=torch.float32)
-    for rows in (128, 8):
-        x = _randn(gen, rows, 1536, dev=cuda)
-        for sid in (0, 17):
-            s = torch.tensor(sid, dtype=torch.int32, device=cuda)
-            torch.testing.assert_close(
-                rn.subnet_rmsnorm(x, gamma, s).float(),
-                rn.subnet_rmsnorm_plain(x, gamma, s).float(),
-                **TOL)
+NORM_DTYPES = [torch.bfloat16, torch.float32]
+
+
+def _norm_inputs(cuda, rows, d, dtype, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = _randn(gen, rows, d, dev=cuda, dtype=dtype)
+    delta = _randn(gen, rows, d, dev=cuda, dtype=dtype)
+    gamma = 1 + 0.1 * _randn(gen, 18, d, dev=cuda, dtype=torch.float32)
+    return x, delta, gamma
+
+
+@pytest.mark.parametrize("dtype", NORM_DTYPES)
+@pytest.mark.parametrize("d", [64, 1536, 5120, 8200])
+@pytest.mark.parametrize("rows", [1, 8, 128, 129, 2048])
+def test_subnet_rmsnorm_kernel_matches_plain(cuda, rows, d, dtype):
+    """The standalone form at decode (8), prefill (128, 2048) and ragged
+    row counts, at qwen2-1.5b's width, qwen2.5-14b's, a narrow one and one
+    past the register buckets (fp32 at 8200 takes the streaming variant):
+    against the plain version for the first and last subnet, two launches
+    bitwise equal."""
+    x, _, gamma = _norm_inputs(cuda, rows, d, dtype, rows + d)
+    for sid in (0, 17):
+        s = _i32(sid, cuda)
+        got = rn.subnet_rmsnorm(x, gamma, s)
+        assert got.shape == x.shape and got.dtype == dtype
+        torch.testing.assert_close(
+            got.float(), rn.subnet_rmsnorm_plain(x, gamma, s).float(), **TOL)
+        assert torch.equal(got, rn.subnet_rmsnorm(x, gamma, s))
+
+
+@pytest.mark.parametrize("dtype", NORM_DTYPES)
+@pytest.mark.parametrize("d", [64, 1536, 5120, 8200])
+@pytest.mark.parametrize("rows", [1, 8, 128, 129, 2048])
+def test_add_subnet_rmsnorm_kernel_matches_plain(cuda, rows, d, dtype):
+    """The fused form: s equals ``x + delta`` (torch.add on the card) bit
+    for bit, h is within TOL of the plain version's norm of s, and two
+    launches give the same bits."""
+    x, delta, gamma = _norm_inputs(cuda, rows, d, dtype, rows * d)
+    for sid in (0, 17):
+        sidt = _i32(sid, cuda)
+        s, h = rn.add_subnet_rmsnorm(x, delta, gamma, sidt)
+        assert s.shape == h.shape == x.shape and s.dtype == h.dtype == dtype
+        assert torch.equal(s, x + delta)
+        want_s, want_h = rn.add_subnet_rmsnorm_plain(x, delta, gamma, sidt)
+        assert torch.equal(s, want_s)
+        torch.testing.assert_close(h.float(), want_h.float(), **TOL)
+        s2, h2 = rn.add_subnet_rmsnorm(x, delta, gamma, sidt)
+        assert torch.equal(s, s2) and torch.equal(h, h2)
+
+
+def test_subnet_rmsnorm_reads_subnet_id_on_the_card(cuda):
+    """Rewriting subnet_id in device memory between launches picks the new
+    gain row in both forms, with no build."""
+    from repro_torch import compat
+    x, delta, gamma = _norm_inputs(cuda, 128, 1536, torch.bfloat16, 7)
+    sid = _i32(0, cuda)
+    rn.add_subnet_rmsnorm(x, delta, gamma, sid)
+    rn.subnet_rmsnorm(x, gamma, sid)
+    with compat.BuildCounter() as bc:
+        for v in (5, 17, 0):
+            sid.fill_(v)
+            want = rn.subnet_rmsnorm_plain(x, gamma, _i32(v, cuda))
+            torch.testing.assert_close(rn.subnet_rmsnorm(x, gamma, sid).float(),
+                                       want.float(), **TOL)
+            _, h = rn.add_subnet_rmsnorm(x, delta, gamma, sid)
+            _, want = rn.add_subnet_rmsnorm_plain(x, delta, gamma,
+                                                  _i32(v, cuda))
+            torch.testing.assert_close(h.float(), want.float(), **TOL)
+    assert bc.count == 0
+
+
+def test_subnet_rmsnorm_is_one_kernel_and_one_allocation_per_call(cuda):
+    """Each form is one device kernel a call and allocates its output and
+    nothing else (one ``(2, rows, d)`` buffer for the fused form)."""
+    from torch.profiler import ProfilerActivity, profile
+    x, delta, gamma = _norm_inputs(cuda, 128, 1536, torch.bfloat16, 8)
+    sid = _i32(3, cuda)
+    for fn in (lambda: rn.subnet_rmsnorm(x, gamma, sid),
+               lambda: rn.add_subnet_rmsnorm(x, delta, gamma, sid)):
+        fn()
+        torch.cuda.synchronize()
+        for _ in range(3):        # a trace that lost events is taken again
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(3):
+                    fn()
+                torch.cuda.synchronize()
+            names = [ev.name for ev in prof.events()
+                     if ev.device_type == torch.autograd.DeviceType.CUDA]
+            assert len(names) <= 3, names
+            if len(names) == 3:
+                break
+        assert len(names) == 3, names
+        assert all("subnet_rmsnorm_kernel" in n for n in names), names
+        before = torch.cuda.memory_allocated(cuda)
+        out = fn()
+        first = out[0] if isinstance(out, tuple) else out
+        assert torch.cuda.memory_allocated(cuda) - before \
+            == first.untyped_storage().nbytes()
+        if isinstance(out, tuple):
+            assert out[1].untyped_storage().data_ptr() \
+                == first.untyped_storage().data_ptr()
+        del out, first
+
+
+def test_subnet_rmsnorm_kernel_refuses_what_it_does_not_take(cuda):
+    """Rows that are not 16-byte aligned, a width that is not a multiple
+    of 8, a delta of another shape and a subnet_id of another type raise
+    before any launch; the C entry point refuses a width that is not a
+    multiple of 8."""
+    x, delta, gamma = _norm_inputs(cuda, 8, 1536, torch.bfloat16, 9)
+    sid = _i32(0, cuda)
+    buf = torch.zeros(x.numel() + 4, dtype=x.dtype, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        rn.subnet_rmsnorm(buf[4:].view(x.shape), gamma, sid)  # 8 bytes off
+    with pytest.raises(ValueError, match="aligned"):
+        rn.add_subnet_rmsnorm(x, buf[4:].view(x.shape), gamma, sid)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        rn.subnet_rmsnorm(x[:, :100].contiguous(), gamma[:, :100].contiguous(),
+                          sid)
+    with pytest.raises(ValueError, match="delta"):
+        rn.add_subnet_rmsnorm(x, delta[:4], gamma, sid)
+    with pytest.raises(TypeError, match="subnet_id"):
+        rn.subnet_rmsnorm(x, gamma, sid.long())
+    out = torch.full_like(x, 7.0)
+    fn = build.function(rn._C[torch.bfloat16], rn._ARGTYPES)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    assert fn(x.data_ptr(), None, gamma.data_ptr(), sid.data_ptr(),
+              out.data_ptr(), 8, 1532, 1e-5, stream) != 0
+    torch.cuda.synchronize()
+    assert (out == 7.0).all()
 
 
 def _i32(v, dev):

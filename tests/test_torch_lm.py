@@ -151,6 +151,80 @@ def test_unported_families_raise():
 
 
 # --------------------------------------------------------------------------
+# the pending residual: each block's add is made by the next block's norm
+# --------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def two_stage():
+    """``tiny_dense`` as two stages of three (attn, mlp) units."""
+    from repro.configs.base import Stage as JStage
+    jcfg = tiny_dense(stages=(JStage(("attn", "mlp"), repeat=3),) * 2)
+    jparams = jlm.init_model(jax.random.PRNGKey(2), jcfg)
+    return jcfg, port_cfg(jcfg), jparams, port_params(jparams)
+
+
+@pytest.mark.parametrize("slice_mode", ["mask", "switch"])
+def test_pending_residual_crosses_gated_units_and_stages(two_stage,
+                                                         slice_mode,
+                                                         monkeypatch):
+    """At depth 1/3 only the first unit of each stage runs, so the delta
+    left pending by the first stage's MLP crosses two gated-off units and
+    the stage boundary before the second stage's attention norm adds it.
+    Prefill, forward and 6 decode steps match JAX for every such subnet;
+    a forward makes 3 fused norms (one per block after the first) and 2
+    plain ones (the first block's and the final norm)."""
+    from repro_torch.kernels import ops as kops
+    jcfg, tcfg, jparams, tparams = two_stage
+    toks = np.random.default_rng(14).integers(
+        0, jcfg.vocab_size, (2, 10)).astype(np.int32)
+    fwd = jax.jit(lambda p, t, c: jlm.forward(p, jcfg, {"tokens": t}, c,
+                                              slice_mode=slice_mode))
+    pre = jax.jit(lambda p, t, c: jlm.prefill(p, jcfg, {"tokens": t}, c,
+                                              slice_mode=slice_mode))
+    step = jlm.cached_decode_step(jcfg, slice_mode)
+    calls = {"fused": 0, "plain": 0}
+
+    def spy(name, fn):
+        def wrapped(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    monkeypatch.setattr(kops, "model_add_subnet_rmsnorm",
+                        spy("fused", kops.model_add_subnet_rmsnorm))
+    monkeypatch.setattr(kops, "model_subnet_rmsnorm",
+                        spy("plain", kops.model_subnet_rmsnorm))
+    subs = [(j, t) for j, t in _subnets(jcfg, tcfg) if t.depth_frac < 0.5]
+    assert len(subs) == 4
+    for jsub, tsub in subs:
+        jctrl, tctrl = jsn.make_control(jcfg, jsub), tsn.make_control(tcfg, tsub)
+        assert tctrl["layer_gate"].tolist() == [True, False, False] * 2
+        calls.update(fused=0, plain=0)
+        got = tlm.forward(tparams, tcfg, {"tokens": toks}, tctrl,
+                          slice_mode=slice_mode)
+        assert calls == {"fused": 3, "plain": 2}
+        np.testing.assert_allclose(got.numpy(),
+                                   np.asarray(fwd(jparams, toks, jctrl)),
+                                   **TOL, err_msg=f"forward {tsub}")
+        got = tlm.prefill(tparams, tcfg, {"tokens": toks}, tctrl,
+                          slice_mode=slice_mode)
+        np.testing.assert_allclose(got.numpy(),
+                                   np.asarray(pre(jparams, toks, jctrl)),
+                                   **TOL, err_msg=f"prefill {tsub}")
+        jcache = jlm.init_cache(jcfg, 2, 16)
+        tcache = tlm.init_cache(tcfg, 2, 16, device="cpu")
+        for i in range(6):
+            want, jcache = step(jparams, jnp.asarray(toks[:, i:i + 1]), jctrl,
+                                jcache, jnp.int32(i))
+            got, tcache = tlm.decode_step(tparams, tcfg, toks[:, i:i + 1],
+                                          tctrl, tcache, i,
+                                          slice_mode=slice_mode)
+            np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL,
+                                       err_msg=f"{tsub} step {i}")
+
+
+# --------------------------------------------------------------------------
 # WeightSlice switch mode: the sliced_matmul entry point against JAX's
 # lax.switch branches, for a GQA and an MHA config, every subnet
 # --------------------------------------------------------------------------

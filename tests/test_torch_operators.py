@@ -32,6 +32,37 @@ def test_subnet_norm_matches_jax(kind, beta, sid):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind,beta", [("rmsnorm", False),
+                                       ("layernorm", False),
+                                       ("layernorm", True)])
+@pytest.mark.parametrize("sid", [0, 3])
+def test_subnet_norm_with_residual_matches_jax(kind, beta, sid, dtype):
+    """With ``residual`` the norm takes the pending add first and returns
+    ``(s, h)``: ``s`` is exactly ``x + residual`` in the working type and
+    ``h`` matches JAX's norm of that sum (2e-3 in fp32, 2e-2 in bf16)."""
+    x, r = _x((2, 5, 64)), _x((2, 5, 64), 3)
+    gamma = 1 + 0.1 * _x((4, 64), 1)
+    bt = 0.1 * _x((4, 64), 2) if beta else None
+    jx = jnp.asarray(x).astype(getattr(jnp, dtype))
+    jr = jnp.asarray(r).astype(getattr(jnp, dtype))
+    want = jops.subnet_norm(jx + jr, jnp.asarray(gamma), jnp.int32(sid),
+                            beta_table=None if bt is None else jnp.asarray(bt),
+                            kind=kind)
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
+    tr = torch.from_numpy(r).to(getattr(torch, dtype))
+    s, h = ops.subnet_norm(tx, torch.from_numpy(gamma),
+                           torch.tensor(sid, dtype=torch.int32),
+                           beta_table=None if bt is None else torch.from_numpy(bt),
+                           kind=kind, residual=tr)
+    assert torch.equal(s, tx + tr) and h.dtype == tx.dtype
+    np.testing.assert_array_equal(s.float().numpy(),
+                                  np.asarray((jx + jr).astype(jnp.float32)))
+    tol = TOL if dtype == "float32" else dict(rtol=2e-2, atol=2e-2)
+    np.testing.assert_allclose(h.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)), **tol)
+
+
 @pytest.mark.parametrize("active,axis", [(0, -1), (5, -1), (64, -1), (3, 1)])
 def test_slice_mask_matches_jax(active, axis):
     x = _x((2, 7, 64))

@@ -38,7 +38,11 @@ Phases, one result line each:
    weights cold, its columns past ``active_out`` must be exactly 0, and
    two launches must give the same bits; the bits of fixed cases must
    equal those recorded before its PTX helpers moved to
-   ``csrc/hopper.cuh`` (on a card with the recorded SM count).
+   ``csrc/hopper.cuh`` (on a card with the recorded SM count). Both
+   attention kernels also run at the heads of the other configs
+   (``CONFIG_HEADS``: head_dim 80 under MHA, 120 with G = 4, 128 with
+   G = 5): the same case checks, and device ms beside SDPA and the bound
+   counted at the real head_dim.
 3. Serve: ``repro_torch.launch.serve`` at the full width and depth of
    qwen2-1.5b (random weights from a seeded ``torch.Generator``), SlackFit
    through the port's Router; every query must be answered, the serve
@@ -60,8 +64,18 @@ Phases, one result line each:
 7. Reference: the full-width model cut to 2 layers, kernels in bf16 on the
    card against the plain fp32 path on the CPU, prefill and decode logits,
    in mask and in switch mode.
+8. Configs: qwen2.5-14b, stablelm-3b and h2o-danube-3-4b in turn, each at
+   its published widths and full depth (random weights from a seeded
+   generator, freed before the next): serve 32 queries with SlackFit
+   (every query answered, no build), switch against mask for every
+   Pareto subnet and 8 decode steps, the trace of a mask prefill and
+   decode step at B = 8, the 2-layer reference in both modes, and for
+   h2o-danube-3-4b a prefill past its 4096-token window and decode steps
+   that wrap the rolling cache, against the plain path on the CPU.
 
-Then one JSON line with every kernel's numbers, and last the device line.
+Each phase prints its seconds. Then one JSON line with every kernel's
+numbers (the attention kernels' also at each head_dim of phase 8), and
+last the device line.
 Exits non-zero, with no result line, when CUDA is unavailable, the port is
 missing, or any phase fails.
 """
@@ -277,8 +291,42 @@ def phase_kernels(torch, card):
 
     # -- decode_attention: q (B,12,1,128), cache (B,2,Smax,128) ------------
     results["decode_attention"] = _decode_cases(torch, card, randn)
+
+    # -- both attention kernels at the other configs' heads ---------------
+    results["flash_attention"]["head_dims"] = {
+        key: _flash_cases(torch, card, randn, heads, key)
+        for key, heads in CONFIG_HEADS.items()}
+    errs = _decode_checks(torch, randn, (80, 120), (1, 4, 5), (16, 256, 4096))
+    results["decode_attention"]["head_dims"] = {
+        key: dict(_decode_rows(torch, card, randn, heads, key,
+                               ((16, 3), (256, 255), (4096, 4095))),
+                  max_abs_err=max(errs), cases=len(errs))
+        for key, heads in CONFIG_HEADS.items()}
     results["sliced_matmul"] = _sliced_cases(torch, card, randn)
     return results
+
+
+# the heads of the configs beside qwen2-1.5b: (head_dim, query heads, kv
+# heads), keyed as the kernels line reports them
+CONFIG_HEADS = {"80": (80, 32, 32),         # stablelm-3b, MHA
+                "120": (120, 32, 8),        # h2o-danube-3-4b, G = 4
+                "128-G5": (128, 40, 8)}     # qwen2.5-14b, G = 5
+
+
+def flash_bound(card, B: int, Hq: int, Hkv: int, S: int, hd: int):
+    """The bound of one causal flash call with no window at the real
+    head_dim: q, k, v and o moved once, 4 * hd FLOPs for each of the
+    S (S + 1) / 2 live (query, key) pairs of each query head."""
+    return card.bound(2 * (2 * B * Hq + 2 * B * Hkv) * S * hd,
+                      4 * hd * S * (S + 1) // 2 * B * Hq)
+
+
+def decode_bound(card, B: int, Hq: int, Hkv: int, live: int, hd: int):
+    """The bound of one decode call at the real head_dim: q and the
+    output, and ``live`` positions of K and V of each kv head, moved once;
+    4 * hd FLOPs a live position and query head."""
+    return card.bound(2 * (2 * B * Hq + 2 * B * Hkv * live) * hd,
+                      4 * hd * live * B * Hq)
 
 
 def norm_bound(card, rows: int, d: int, fused: bool):
@@ -363,23 +411,26 @@ def _norm_cases(torch, card, randn):
                 max_abs_err=max(errs), cases=len(errs), rows=rows_out)
 
 
-def _flash_cases(torch, card, randn):
-    """flash_attention at qwen2-1.5b's heads (12 over 2 kv heads, d = 128),
-    B = 8. Every case of the card tests (S = 1, 16, 63, 64, 65 with kv_len
-    40, 200 with window 64 and kv_len 150, 256; kv_len read on the card),
-    on contiguous (B, H, S, d) tensors and on views of one (B, S, 16, d)
-    projection, at each head width (None, 6 as a device tensor, 12), held
-    against the plain version; two launches must give the same bits and
-    inactive heads exactly 0. Then at S = 16, 256 and 2048 the device ms
-    at full and half head width beside SDPA's (on k/v repeated per query
-    head) and the bound, and the wrapper's host us at S = 16 (least mean of
+def _flash_cases(torch, card, randn, heads=(128, 12, 2), key=None):
+    """flash_attention at ``heads`` (head_dim, query heads, kv heads;
+    qwen2-1.5b's by default), B = 8. Every case of the card tests (S = 1,
+    16, 63, 64, 65 with kv_len 40, 200 with window 64 and kv_len 150, 256;
+    kv_len read on the card), on contiguous (B, H, S, d) tensors and on
+    views of one (B, S, Hq + 2 Hkv, d) projection, at head width None, half
+    (a device tensor, as switch mode passes it) and full, held against the
+    plain version; two launches must give the same bits and inactive
+    heads exactly 0. Then at S = 16, 256 and 2048 the device ms at full
+    and half head width beside SDPA's (on k/v repeated per query head) and
+    the bound at the real head_dim (the kernel pads the head to 128
+    columns on the SM), and the wrapper's host us at S = 16 (least mean of
     5 rounds). Returns the S = 256 row (the headline)."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     dev = "cuda"
-    B, Hq, Hkv, hd = 8, 12, 2, 128
-    G = Hq // Hkv
+    hd, Hq, Hkv = heads
+    B, G = 8, Hq // Hkv
+    tag = {} if key is None else {"heads": key}
 
     def i32(n):
         return torch.full((), n, dtype=torch.int32, device=dev)
@@ -388,7 +439,7 @@ def _flash_cases(torch, card, randn):
     cases = ((1, 0, None), (16, 0, None), (63, 0, None), (64, 0, None),
              (65, 0, 40), (200, 64, 150), (256, 0, None))
     for (S, window, kv_len), layout, hw in itertools.product(
-            cases, ("bhsd", "bshd-view"), (None, 6, 12)):
+            cases, ("bhsd", "bshd-view"), (None, Hq // 2, Hq)):
         if layout == "bhsd":
             q, k, v = randn(B, Hq, S, hd), randn(B, Hkv, S, hd), \
                 randn(B, Hkv, S, hd)
@@ -398,9 +449,9 @@ def _flash_cases(torch, card, randn):
                        for t in qkv.split([Hq, Hkv, Hkv], dim=2))
         kw = dict(window=window,
                   kv_len=None if kv_len is None else i32(kv_len),
-                  head_width=i32(hw) if hw == 6 else hw)
-        label = (f"flash_attention S={S} window={window} kv_len={kv_len} "
-                 f"{layout} head_width={hw}")
+                  head_width=i32(hw) if hw == Hq // 2 else hw)
+        label = (f"flash_attention heads={heads} S={S} window={window} "
+                 f"kv_len={kv_len} {layout} head_width={hw}")
         got = fa.flash_attention(q, k, v, **kw)
         errs.append(_compare(torch, label, got,
                              fa.flash_attention_plain(q, k, v, **kw)))
@@ -408,12 +459,9 @@ def _flash_cases(torch, card, randn):
             fail(f"{label}: two launches gave different bits")
         if hw is not None and got[:, ~ref.head_active(Hq, Hkv, hw, dev)].any():
             fail(f"{label}: nonzero outputs of inactive heads")
-    say("kernel-case", name="flash_attention", cases=len(errs),
+    say("kernel-case", name="flash_attention", **tag, cases=len(errs),
         max_abs_err=max(errs), checked="BF16_TOL against the plain version, "
         "two launches bitwise equal, inactive heads exactly 0")
-
-    def live_pairs(S):
-        return S * (S + 1) // 2           # causal, no window
 
     rows = {}
     half = i32(Hq // 2)
@@ -421,8 +469,7 @@ def _flash_cases(torch, card, randn):
         q, k, v = randn(B, Hq, S, hd), randn(B, Hkv, S, hd), \
             randn(B, Hkv, S, hd)
         kx, vx = k.repeat_interleave(G, dim=1), v.repeat_interleave(G, dim=1)
-        bound, by = card.bound(2 * (2 * q.numel() + k.numel() + v.numel()),
-                               4 * hd * live_pairs(S) * B * Hq)
+        bound, by = flash_bound(card, B, Hq, Hkv, S, hd)
         row = dict(
             shape=[B, Hq, Hkv, S, hd], plan=list(fa.pack_plan(S, G)),
             device_ms=device_ms(torch, lambda: fa.flash_attention(q, k, v)),
@@ -445,35 +492,27 @@ def _flash_cases(torch, card, randn):
                     torch, lambda: F.scaled_dot_product_attention(
                         q, kx, vx, is_causal=True)))
         rows[S] = row
-        say("kernel", name="flash_attention", S=S, **row)
+        say("kernel", name="flash_attention", **tag, S=S, **row)
+        del q, k, v, kx, vx
     return dict(rows[256], max_abs_err=max(errs), cases=len(errs),
                 s16=rows[16], s2048=rows[2048])
 
 
-def _decode_cases(torch, card, randn):
-    """decode_attention over G = 1, 5, 6, 8 query heads per kv head (2 kv
-    heads, d = 128), B = 1 and 8, Smax = 16, 32, 256 and 2048, every index
-    class (0, 3, Smax / 2, Smax - 1) and window 0 and 64, held against the
-    plain version; two launches must give the same bits. Then one device
-    kernel a call and no allocation but the output, and at qwen2-1.5b's
-    heads (12 over 2), B = 8: device ms at Smax 16 (index 3, the trace's
-    decode step), 256 (index 255) and 2048 (index 2047 and 1023) beside
-    masked SDPA (on k/v repeated per query head) and the bound, and the
-    wrapper's host us at Smax 256 (least mean of 10 rounds). Returns the
-    Smax = 256 row (the headline)."""
-    import torch.nn.functional as F
-    from torch.profiler import ProfilerActivity, profile
+def _decode_checks(torch, randn, head_dims, Gs, smaxes):
+    """decode_attention at each of ``head_dims`` over G in ``Gs`` query
+    heads per kv head (2 kv heads), B = 1 and 8, each Smax of ``smaxes``,
+    every index class (0, 3, Smax / 2, Smax - 1) and window 0 and 64, held
+    against the plain version; two launches must give the same bits.
+    Returns the max |error| of each case."""
     from repro_torch.kernels import decode_attention as da
-    dev = "cuda"
     errs = []
-    for G, B, Smax in itertools.product((1, 5, 6, 8), (1, 8),
-                                        (16, 32, 256, 2048)):
-        q, kc, vc = randn(B, 2 * G, 1, 128), randn(B, 2, Smax, 128), \
-            randn(B, 2, Smax, 128)
+    for hd, G, B, Smax in itertools.product(head_dims, Gs, (1, 8), smaxes):
+        q, kc, vc = randn(B, 2 * G, 1, hd), randn(B, 2, Smax, hd), \
+            randn(B, 2, Smax, hd)
         for index, window in itertools.product(
                 sorted({0, 3, Smax // 2, Smax - 1}), (0, 64)):
-            idx = torch.full((), index, dtype=torch.int32, device=dev)
-            label = (f"decode_attention G={G} B={B} Smax={Smax} "
+            idx = torch.full((), index, dtype=torch.int32, device="cuda")
+            label = (f"decode_attention d={hd} G={G} B={B} Smax={Smax} "
                      f"index={index} window={window}")
             got = da.decode_attention(q, kc, vc, idx, window=window)
             errs.append(_compare(torch, label, got, da.decode_attention_plain(
@@ -481,16 +520,46 @@ def _decode_cases(torch, card, randn):
             if not torch.equal(got, da.decode_attention(q, kc, vc, idx,
                                                         window=window)):
                 fail(f"{label}: two launches gave different bits")
-    say("kernel-case", name="decode_attention", cases=len(errs),
-        max_abs_err=max(errs), checked="BF16_TOL against the plain version, "
-        "two launches bitwise equal")
+    say("kernel-case", name="decode_attention", head_dims=list(head_dims),
+        cases=len(errs), max_abs_err=max(errs),
+        checked="BF16_TOL against the plain version, two launches bitwise "
+        "equal")
+    return errs
 
-    B, Hq, Hkv, hd = 8, 12, 2, 128
-    G = Hq // Hkv
+
+def _decode_cases(torch, card, randn):
+    """decode_attention at d = 128 over G = 1, 5, 6, 8 (2 kv heads),
+    Smax = 16, 32, 256 and 2048 (:func:`_decode_checks`), then at
+    qwen2-1.5b's heads (12 over 2), B = 8, :func:`_decode_rows` at Smax 16
+    (index 3, the trace's decode step), 256 (index 255) and 2048 (index
+    2047 and 1023). Returns the Smax = 256 row (the headline)."""
+    errs = _decode_checks(torch, randn, (128,), (1, 5, 6, 8),
+                          (16, 32, 256, 2048))
+    return dict(_decode_rows(torch, card, randn, (128, 12, 2), None,
+                             ((16, 3), (256, 255), (2048, 2047),
+                              (2048, 1023))),
+                max_abs_err=max(errs), cases=len(errs))
+
+
+def _decode_rows(torch, card, randn, heads, key, shapes):
+    """decode_attention at ``heads`` (head_dim, query heads, kv heads),
+    B = 8, for each (Smax, index) of ``shapes``: one device kernel a call
+    and no allocation but the output, then device ms beside masked SDPA
+    (on k/v repeated per query head) and the bound at the real head_dim,
+    and at Smax 256 the wrapper's host us (least mean of 10 rounds).
+    Returns the Smax = 256 row with the others under ``smax<Smax>`` (and
+    ``_index<index>`` for a second index)."""
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import decode_attention as da
+    dev = "cuda"
+    hd, Hq, Hkv = heads
+    B, G = 8, Hq // Hkv
+    tag = {} if key is None else {"heads": key}
     q = randn(B, Hq, 1, hd)
     sms = da._sm_count(q.device)
-    rows = {}
-    for Smax, index in ((16, 3), (256, 255), (2048, 2047), (2048, 1023)):
+    out, seen = {}, set()
+    for Smax, index in shapes:
         kc, vc = randn(B, Hkv, Smax, hd), randn(B, Hkv, Smax, hd)
         kcx, vcx = kc.repeat_interleave(G, dim=1), vc.repeat_interleave(G, dim=1)
         idx = torch.full((), index, dtype=torch.int32, device=dev)
@@ -521,8 +590,7 @@ def _decode_cases(torch, card, randn):
             fail(f"decode_attention Smax={Smax}: a call allocated {grew} "
                  f"bytes, its output {kept.untyped_storage().nbytes()}")
         del kept
-        nbytes = 2 * (2 * q.numel() + 2 * B * Hkv * length * hd)
-        bound, by = card.bound(nbytes, 4 * hd * length * B * Hq)
+        bound, by = decode_bound(card, B, Hq, Hkv, length, hd)
         row = dict(
             shape=[B, Hq, Hkv, Smax, hd], index=index, plan=list(da.PLAN),
             grid=[B * Hkv, n_split], chunk=chunk, live_splits=n_live,
@@ -543,12 +611,12 @@ def _decode_cases(torch, card, randn):
                 library_ms=time_ms(
                     torch, lambda: F.scaled_dot_product_attention(
                         q, kcx, vcx, attn_mask=mask)))
-        rows[f"{Smax}/{index}"] = row
-        say("kernel", name="decode_attention", Smax=Smax, **row)
+        name = f"smax{Smax}" + (f"_index{index}" if Smax in seen else "")
+        seen.add(Smax)
+        out[name] = row
+        say("kernel", name="decode_attention", **tag, Smax=Smax, **row)
         del kc, vc, kcx, vcx
-    return dict(rows["256/255"], max_abs_err=max(errs), cases=len(errs),
-                smax16=rows["16/3"], smax2048=rows["2048/2047"],
-                smax2048_index1023=rows["2048/1023"])
+    return dict(out.pop("smax256"), **out)
 
 
 def host_us(torch, fn, n: int = 200, rounds: int = 1) -> float:
@@ -800,17 +868,8 @@ def phase_switch(torch):
     rng = np.random.default_rng(5)
     toks = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
 
-    def rel_err(got, want, what):
-        if got.shape != want.shape or not np.isfinite(got).all():
-            fail(f"switch {what}: bad logits {got.shape}")
-        scale = float(np.abs(want).max())
-        err = float(np.abs(got - want).max()) / scale
-        if err > 2e-2:
-            fail(f"switch {what}: off mask mode by {err} of max|logit|")
-        return err
-
     prefill_errs = [rel_err(switch.prefill(idx, toks), mask.prefill(idx, toks),
-                            f"prefill subnet {idx}")
+                            f"switch prefill subnet {idx}")
                     for idx in range(switch.n_subnets)]
     decode_errs, decode = [], {}
     for idx in (0, switch.n_subnets - 1):
@@ -820,7 +879,8 @@ def phase_switch(torch):
         for i in range(steps):
             got, cs = switch.decode_step(idx, tok, cs, i)
             want, cm = mask.decode_step(idx, tok, cm, i)
-            decode_errs.append(rel_err(got, want, f"decode {idx} step {i}"))
+            decode_errs.append(rel_err(got, want,
+                                       f"switch decode {idx} step {i}"))
             tok = want.argmax(-1).astype(np.int32)[:, None]
         decode[f"subnet_{idx}_ms_per_step_both_modes"] = \
             (time.perf_counter() - t0) / steps * 1e3
@@ -864,10 +924,9 @@ def phase_trace(torch, symbols=PORT_KERNEL_SYMBOLS):
     full-depth subnet spend their time: host wall clock (median of 10,
     taken in rounds over the four) against device kernel time from
     torch.profiler, and the kernel launches of each; the device ms and
-    launches of each kernel whose name holds one of ``symbols``."""
+    launches of each kernel whose name holds one of ``symbols``
+    (:func:`trace_steps`)."""
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch import compat
     from repro_torch.configs import get_config
     from repro_torch.serving.executor import build_executor
     from repro_torch.core import subnet as sn
@@ -885,12 +944,39 @@ def phase_trace(torch, symbols=PORT_KERNEL_SYMBOLS):
                                 for sub in (sn.max_subnet(cfg), narrow)],
                         exec_cfg=ExecutorConfig(slice_mode="switch"))
     sw.warmup(batches=(8,), seqs=(16,))
-    toks, idx, n = np.ones((8, 16), np.int32), ex.n_subnets - 1, 10
+    toks, idx = np.ones((8, 16), np.int32), ex.n_subnets - 1
     cache = ex.init_cache(8, 16)
-    steps = {"prefill": lambda: ex.prefill(idx, toks),
-             "decode": lambda: ex.decode_step(idx, toks[:, :1], cache, 3),
-             "switch_prefill_widest": lambda: sw.prefill(0, toks),
-             "switch_prefill_narrowest": lambda: sw.prefill(1, toks)}
+    report = trace_steps(torch, {
+        "prefill": lambda: ex.prefill(idx, toks),
+        "decode": lambda: ex.decode_step(idx, toks[:, :1], cache, 3),
+        "switch_prefill_widest": lambda: sw.prefill(0, toks),
+        "switch_prefill_narrowest": lambda: sw.prefill(1, toks)}, symbols)
+    # the flash kernel's device ms in the switch prefills: the narrowest
+    # computes half the heads of the widest
+    flash = {kind: report[kind]["port_kernels_ms"].get(
+                 "flash_fwd_kernel", [0.0, 0])[0]
+             for kind in ("switch_prefill_widest", "switch_prefill_narrowest")}
+    say("trace", batch=8, seq=16, subnet=idx,
+        switch_subnets=[sw.points[0].sub.key(), narrow.key()],
+        flash_ms_switch_widest=flash["switch_prefill_widest"],
+        flash_ms_switch_narrowest=flash["switch_prefill_narrowest"],
+        flash_narrowest_over_widest=(
+            flash["switch_prefill_narrowest"] / flash["switch_prefill_widest"]
+            if flash["switch_prefill_widest"] else "not measured"),
+        **report)
+
+
+def trace_steps(torch, steps, symbols=PORT_KERNEL_SYMBOLS, n: int = 10):
+    """Each warmed step of ``steps`` (kind -> fn): its launches, host wall
+    clock (median of ``n``, taken in rounds over the kinds, so a drift of
+    the shared host does not favour the kind measured first), device
+    kernel time from torch.profiler over ``n`` more, the device's idle
+    share, device kernels and ``aten::add`` calls a step, the top kernels,
+    and the device ms and launches of each kernel whose name holds one of
+    ``symbols``."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import compat
     launches, walls = {}, {kind: [] for kind in steps}
     for kind, step in steps.items():
         for _ in range(3):
@@ -939,35 +1025,20 @@ def phase_trace(torch, symbols=PORT_KERNEL_SYMBOLS):
             launches=launches[kind],
             port_kernels_ms={k: [ms, c] for k, (ms, c) in port.items()},
             top=[[name[:60], t / n / 1e3, c // n] for name, (t, c) in top])
-    # the flash kernel's device ms in the switch prefills: the narrowest
-    # computes half the heads of the widest
-    flash = {kind: report[kind]["port_kernels_ms"].get(
-                 "flash_fwd_kernel", [0.0, 0])[0]
-             for kind in ("switch_prefill_widest", "switch_prefill_narrowest")}
-    say("trace", batch=8, seq=16, subnet=idx,
-        switch_subnets=[sw.points[0].sub.key(), narrow.key()],
-        flash_ms_switch_widest=flash["switch_prefill_widest"],
-        flash_ms_switch_narrowest=flash["switch_prefill_narrowest"],
-        flash_narrowest_over_widest=(
-            flash["switch_prefill_narrowest"] / flash["switch_prefill_widest"]
-            if flash["switch_prefill_widest"] else "not measured"),
-        **report)
+    return report
 
 
-def phase_reference(torch):
-    """Full width, 2 layers: kernels (bf16, card) vs plain (fp32, CPU), in
-    mask and in switch mode."""
-    import numpy as np
+def two_layer_cut(torch, name: str, seed: int):
+    """The full-width ``name`` cut to 2 layers: (cfg, bf16 parameters on
+    the card from a seeded generator, the fp32 config, the same parameters
+    in fp32 on the CPU)."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import Stage
-    from repro_torch.core import subnet as sn
-    from repro_torch.core.pareto import pareto_subnets
     from repro_torch.models import lm
-    torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = get_config("qwen2-1.5b")
+    cfg = get_config(name)
     cfg = cfg.replace(stages=(Stage(("attn", "mlp"), repeat=2),))
-    gen = torch.Generator(device="cuda").manual_seed(2)
-    gpu = lm.init_model(cfg, gen, "cuda")
+    gpu = lm.init_model(cfg, torch.Generator(device="cuda").manual_seed(seed),
+                        "cuda")
 
     def to_cpu(t):
         if isinstance(t, dict):
@@ -976,8 +1047,21 @@ def phase_reference(torch):
             return [to_cpu(v) for v in t]
         return t.float().cpu()
 
-    cpu = to_cpu(gpu)
-    cfg32 = cfg.replace(dtype="float32")
+    return cfg, gpu, cfg.replace(dtype="float32"), to_cpu(gpu)
+
+
+def reference_check(torch, cut, tag: str = "reference"):
+    """Kernels (bf16, card) against the plain path (fp32, CPU) on a
+    2-layer ``cut`` (:func:`two_layer_cut`): prefill logits (B=2, S=16) and
+    4 decode steps, for the first and the last Pareto subnet, in mask and
+    in switch mode, within 2e-2 of max |logit|. Returns the worst relative
+    error of each mode."""
+    import numpy as np
+    from repro_torch.core import subnet as sn
+    from repro_torch.core.pareto import pareto_subnets
+    from repro_torch.models import lm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, gpu, cfg32, cpu = cut
     rng = np.random.default_rng(3)
     toks = rng.integers(0, cfg.vocab_size, (2, 16)).astype(np.int32)
     pts = pareto_subnets(cfg)
@@ -993,7 +1077,7 @@ def phase_reference(torch):
             err = (got - want).abs().max().item() / scale
             worst[mode] = max(worst[mode], err)
             if not torch.allclose(got, want, atol=2e-2 * scale, rtol=2e-2):
-                fail(f"reference {mode}: prefill logits off by {err} "
+                fail(f"{tag} {mode}: prefill logits off by {err} "
                      f"(relative)")
             cg = lm.init_cache(cfg, 2, 16, device="cuda")
             cc = lm.init_cache(cfg32, 2, 16, device="cpu")
@@ -1008,10 +1092,435 @@ def phase_reference(torch):
                 err = (lg - lc).abs().max().item() / scale
                 worst[mode] = max(worst[mode], err)
                 if not torch.allclose(lg, lc, atol=2e-2 * scale, rtol=2e-2):
-                    fail(f"reference {mode}: decode step {i} off by {err}")
+                    fail(f"{tag} {mode}: decode step {i} off by {err}")
+    return worst
+
+
+def phase_reference(torch):
+    """Full width, 2 layers: kernels (bf16, card) vs plain (fp32, CPU), in
+    mask and in switch mode."""
+    from repro_torch.core.pareto import pareto_subnets
+    cut = two_layer_cut(torch, "qwen2-1.5b", seed=2)
+    worst = reference_check(torch, cut)
+    cfg = cut[0]
     say("reference", layers=2, d_model=cfg.d_model, vocab=cfg.vocab_size,
-        subnets=[0, len(pts) - 1], max_rel_err=worst["mask"],
+        subnets=[0, len(pareto_subnets(cfg)) - 1], max_rel_err=worst["mask"],
         switch_max_rel_err=worst["switch"], tol="2e-2 of max|ref|")
+
+
+# --------------------------------------------------------------------------
+# phase 8: the other dense configurations
+# --------------------------------------------------------------------------
+
+CONFIGS = ("stablelm-3b", "h2o-danube-3-4b", "qwen2.5-14b")
+
+
+def rel_err(got, want, what, tol: float = 2e-2) -> float:
+    """max |got - want| over max |want| of two numpy logit arrays; fails
+    past ``tol`` or on a shape mismatch or a non-finite value."""
+    import numpy as np
+    if got.shape != want.shape or not np.isfinite(got).all():
+        fail(f"{what}: bad logits {got.shape}")
+    err = float(np.abs(got - want).max()) / float(np.abs(want).max())
+    if err > tol:
+        fail(f"{what}: off by {err} of max|logit|")
+    return err
+
+
+def phase_configs(torch):
+    """Phase 8: each of CONFIGS in turn at full width and depth, random
+    weights from a seeded generator, each model freed before the next.
+    Returns the kernel launches of each driven path."""
+    launches = []
+    for name in CONFIGS:
+        t0 = time.perf_counter()
+        launches += config_run(torch, name)
+        say("config-seconds", arch=name, seconds=time.perf_counter() - t0)
+    return launches
+
+
+def _free(torch):
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def config_run(torch, name: str):
+    """(a) serve 32 queries with SlackFit in mask and in switch mode:
+    every query answered, no build, flash, the norm (an RMSNorm config)
+    and in switch mode ``sliced_matmul`` launched; (b) switch against mask
+    through the executor over the prefills (B=8, S=16) of every Pareto
+    subnet and 8 greedy decode steps of the smallest and the largest,
+    each held against the fp32 oracle (:func:`fp32_oracle`): the switch
+    logits no further from it than the mask logits plus
+    ``SWITCH_MARGIN``, decode and ``sliced_matmul`` launched; then every
+    block of the same mask walks against its switch twin
+    (:class:`BlockShadow`), the number of blocks compared checked; (e)
+    the trace of a warmed mask prefill and decode step at B=8; (c) the
+    2-layer reference in both modes; (d) for a config with a sliding
+    window, a prefill past the window and decode steps that wrap the
+    rolling cache against the plain path on the CPU. Returns the launches
+    of the two serve runs and of the executor's walks in (b)."""
+    import numpy as np
+    from repro_torch import compat
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.serving.executor import ExecutorConfig, SubnetExecutor
+    cfg = get_config(name)
+    rms = cfg.norm == "rmsnorm"
+    secs = {}
+    torch.cuda.reset_peak_memory_stats()
+
+    # (a) serve, mask mode and switch mode
+    served, serve_launches = {}, []
+    for mode in ("mask", "switch"):
+        t0 = time.perf_counter()
+        compat.reset_launch_counts()
+        out = serve.run(["--execute", "real", "--arch", name, "--queries",
+                         "32", "--seq-len", "16", "--slice-mode", mode])
+        serve_launches.append(compat.launch_counts())
+        _free(torch)
+        secs[f"serve_{mode}"] = time.perf_counter() - t0
+        if out["size"] != "full" or out["slice_mode"] != mode:
+            fail(f"{name}: serve did not run the full-width model in {mode} "
+                 f"mode")
+        if out["queries"] < 1 or out["served"] != out["queries"]:
+            fail(f"{name} {mode}: served {out['served']} of "
+                 f"{out['queries']} queries")
+        if out["serve_phase_builds"] != 0:
+            fail(f"{name} {mode}: serve phase built "
+                 f"{out['serve_phase_builds']} kernels")
+        for kernel in ("flash_attention",) \
+                + (("subnet_rmsnorm",) if rms else ()) \
+                + (("sliced_matmul",) if mode == "switch" else ()):
+            if out["kernel_launches"].get(kernel, 0) <= 0:
+                fail(f"{name}: {kernel} never launched while serving in "
+                     f"{mode} mode")
+        served[mode] = out
+
+    # (b) switch against mask through the executor over one parameter
+    # tree, both against the fp32 oracle; then each block on its own
+    t0 = time.perf_counter()
+    params = lm.init_model(cfg, torch.Generator(device="cuda").manual_seed(4),
+                           "cuda")
+    n_params = sum(t.numel() for t in _leaves(params))
+    mask = SubnetExecutor(params, cfg)
+    switch = SubnetExecutor(params, cfg,
+                            exec_cfg=ExecutorConfig(slice_mode="switch"))
+    B, S, steps = 8, 16, 8
+    ends = (0, mask.n_subnets - 1)
+    toks = np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)
+    compat.reset_launch_counts()
+    masked = [mask.prefill(i, toks) for i in range(mask.n_subnets)]
+    switched = [switch.prefill(i, toks) for i in range(mask.n_subnets)]
+    decoded = {}
+    for i in ends:
+        cs, cm = switch.init_cache(B, 32), mask.init_cache(B, 32)
+        seq, got_m, got_s = [toks[:, :1]], [], []
+        for j in range(steps):
+            got, cs = switch.decode_step(i, seq[-1], cs, j)
+            want, cm = mask.decode_step(i, seq[-1], cm, j)
+            got_s.append(got)
+            got_m.append(want)
+            seq.append(want.argmax(-1).astype(np.int32)[:, None])
+        decoded[i] = (np.concatenate(seq[:steps], 1), got_m, got_s)
+    parity_launches = compat.launch_counts()
+    for kernel in ("flash_attention", "decode_attention", "sliced_matmul") \
+            + (("subnet_rmsnorm",) if rms else ()):
+        if parity_launches.get(kernel, 0) <= 0:
+            fail(f"{name}: {kernel} never launched in switch against mask")
+    oracle = [fp32_oracle(torch, params, cfg, toks, c)[:, -1]
+              for c in mask.ctrls]
+    logits = {
+        key: [rel_err(a, b, f"{name} prefill subnet {i} {key}",
+                      tol=float("inf"))
+              for i, (a, b) in enumerate(zip(got, want))]
+        for key, got, want in (("switch_vs_mask", switched, masked),
+                               ("mask_vs_fp32", masked, oracle),
+                               ("switch_vs_fp32", switched, oracle))}
+    for i, (sw, mk) in enumerate(zip(logits["switch_vs_fp32"],
+                                     logits["mask_vs_fp32"])):
+        if not sw <= mk + SWITCH_MARGIN:
+            fail(f"{name}: switch prefill of subnet {i} is {sw} of max|logit| "
+                 f"off the fp32 oracle, mask {mk}")
+    decode_errs = {"switch_vs_mask": [], "mask_vs_fp32": [],
+                   "switch_vs_fp32": []}
+    for i in ends:
+        seq, got_m, got_s = decoded[i]
+        ref = fp32_oracle(torch, params, cfg, seq, mask.ctrls[i])
+        for j in range(steps):
+            errs = {key: rel_err(a, b, f"{name} decode {i} step {j} {key}",
+                                 tol=float("inf"))
+                    for key, a, b in (("switch_vs_mask", got_s[j], got_m[j]),
+                                      ("mask_vs_fp32", got_m[j], ref[:, j]),
+                                      ("switch_vs_fp32", got_s[j],
+                                       ref[:, j]))}
+            for key, e in errs.items():
+                decode_errs[key].append(e)
+            if not errs["switch_vs_fp32"] <= errs["mask_vs_fp32"] \
+                    + SWITCH_MARGIN:
+                fail(f"{name}: switch decode {i} step {j} is "
+                     f"{errs['switch_vs_fp32']} of max|logit| off the fp32 "
+                     f"oracle, mask {errs['mask_vs_fp32']}")
+    del oracle, ref
+    # the same mask walks again, each block against its switch twin; the
+    # launches of this pass belong to no served path and are not counted
+    with BlockShadow(name) as shadow:
+        for i in range(mask.n_subnets):
+            mask.prefill(i, toks)
+        for i in ends:
+            cm = mask.init_cache(B, 32)
+            for j in range(steps):
+                _, cm = mask.decode_step(i, decoded[i][0][:, j:j + 1], cm, j)
+    want_blocks = shadow_blocks(cfg, mask.ctrls, ends, steps)
+    if shadow.blocks != want_blocks:
+        fail(f"{name}: {shadow.blocks} blocks compared to their switch twins, "
+             f"not {want_blocks}")
+    secs["switch"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mask.warmup(batches=(8,), seqs=(16,), decode=True)
+    idx, tt = mask.n_subnets - 1, np.ones((8, 16), np.int32)
+    cache = mask.init_cache(8, 16)
+    trace = trace_steps(torch, {
+        "prefill": lambda: mask.prefill(idx, tt),
+        "decode": lambda: mask.decode_step(idx, tt[:, :1], cache, 3)})
+    secs["trace"] = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del mask, switch, params, cache, cm
+    _free(torch)
+
+    # (c) the 2-layer reference, and (d) the window past its end
+    t0 = time.perf_counter()
+    cut = two_layer_cut(torch, name, seed=2)
+    worst = reference_check(torch, cut, tag=f"{name} reference")
+    secs["reference"] = time.perf_counter() - t0
+    window = None
+    if cfg.sliding_window:
+        t0 = time.perf_counter()
+        window = window_check(torch, cut)
+        secs["window"] = time.perf_counter() - t0
+    del cut
+    _free(torch)
+    serve_keys = ("queries", "served", "slo_attainment", "p50_latency_ms",
+                  "p99_latency_ms", "rate_qps", "slo_ms", "lat_fast_ms",
+                  "lat_slow_ms", "init_seconds", "serve_phase_builds",
+                  "kernel_launches")
+    say("config", arch=name, layers=sum(s.repeat for s in cfg.stages),
+        d_model=cfg.d_model, heads=[cfg.n_heads, cfg.n_kv_heads],
+        head_dim=cfg.resolved_head_dim, d_ff=cfg.d_ff, vocab=cfg.vocab_size,
+        norm=cfg.norm, window=cfg.sliding_window, parameters=n_params,
+        peak_device_gb=peak_gb,
+        serve={mode: {k: out[k] for k in serve_keys}
+               for mode, out in served.items()},
+        subnets=len(masked), switch_margin=SWITCH_MARGIN,
+        prefill_logits_rel_errs=logits,
+        prefill_logits_max_rel_err={k: max(v) for k, v in logits.items()},
+        decode_logits_max_rel_err={k: max(v) for k, v in decode_errs.items()},
+        blocks_compared=shadow.blocks,
+        switch_block_max_rel_err=shadow.worst,
+        block_tol="2e-2 of max|block output|",
+        parity_launches=parity_launches,
+        reference_max_rel_err=worst["mask"],
+        reference_switch_max_rel_err=worst["switch"], window_check=window,
+        seconds=secs, trace=trace)
+    return serve_launches + [parity_launches]
+
+
+# how much further from the fp32 oracle the switch logits of a full-depth
+# walk may be than the mask logits of the same walk, in max|logit|: the
+# two modes round differently in bf16 and both stray about 0.02 from the
+# oracle at depth 24-48, but within 0.003 of each other's distance to it
+SWITCH_MARGIN = 0.005
+
+
+def shadow_blocks(cfg, ctrls, ends, steps: int) -> int:
+    """The blocks that :class:`BlockShadow` compares over the mask-mode
+    prefill of every control in ``ctrls`` and ``steps`` decode steps of
+    the subnets ``ends``: every live attention and MLP block of a
+    prefill, every live MLP block of a decode step."""
+    import numpy as np
+
+    def live(ctrl, kinds):
+        gates, offset, n = np.asarray(ctrl["layer_gate"], bool), 0, 0
+        for stage in cfg.stages:
+            per = sum(k in kinds for k in stage.pattern)
+            n += per * int(gates[offset:offset + stage.repeat].sum())
+            offset += stage.repeat
+        return n
+
+    return (sum(live(c, ("attn", "mlp")) for c in ctrls)
+            + steps * sum(live(ctrls[i], ("mlp",)) for i in ends))
+
+
+class BlockShadow:
+    """While active, every attention and MLP block that a mask-mode walk
+    runs also runs in switch mode on the same inputs (x, the pending
+    delta, the weights and the control), and the worst max |switch - mask|
+    over max |mask| of a block's output is kept; past ``tol`` it fails.
+    Each block is compared on its own, so the bf16 rounding differences of
+    the two modes do not compound over the depth. Decode has no switch
+    branch in attention, so there the MLP blocks compare."""
+
+    def __init__(self, name: str, tol: float = 2e-2):
+        self.name, self.tol = name, tol
+        self.worst, self.blocks = 0.0, 0
+
+    def __enter__(self):
+        from repro_torch.models import attention as attn_mod
+        from repro_torch.models import ffn as ffn_mod
+        self._orig = attn, mlp = (attn_mod.attention_block_pending,
+                                  ffn_mod.mlp_block_pending)
+
+        def attn_twin(p, cfg, x, delta, ctrl, positions, *,
+                      slice_mode="mask", **kw):
+            s, y = attn(p, cfg, x, delta, ctrl, positions,
+                        slice_mode=slice_mode, **kw)
+            if slice_mode == "mask":
+                self._note(attn(p, cfg, x, delta,
+                                attn_mod.with_wo_width(cfg, ctrl), positions,
+                                slice_mode="switch", **kw)[1], y, "attention")
+            return s, y
+
+        def mlp_twin(p, cfg, x, delta, ctrl, *, slice_mode="mask"):
+            s, y = mlp(p, cfg, x, delta, ctrl, slice_mode=slice_mode)
+            if slice_mode == "mask":
+                self._note(mlp(p, cfg, x, delta, ctrl,
+                               slice_mode="switch")[1], y, "mlp")
+            return s, y
+
+        attn_mod.attention_block_pending = attn_twin
+        ffn_mod.mlp_block_pending = mlp_twin
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import attention as attn_mod
+        from repro_torch.models import ffn as ffn_mod
+        attn_mod.attention_block_pending, ffn_mod.mlp_block_pending = \
+            self._orig
+        return False
+
+    def _note(self, got, want, kind):
+        want = want.float()
+        err = ((got.float() - want).abs().max()
+               / want.abs().max().clamp_min(1e-30)).item()
+        self.blocks += 1
+        self.worst = max(self.worst, err)
+        if not err <= self.tol:
+            fail(f"{self.name}: switch {kind} block {self.blocks} off its "
+                 f"mask twin by {err} of max|output|")
+
+
+def fp32_oracle(torch, params, cfg, toks, ctrl):
+    """The mask-mode logits of ``toks`` at every position in fp32 on the
+    card: each layer's weights upcast as the walk reaches it (the bf16
+    tree stays as it is), the plain attention, the norm kernel's fp32
+    form, fp32 cuBLAS products with TF32 off. A numpy (B, S, vocab)
+    array."""
+    from repro_torch.core import operators as ops
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import ffn as ffn_mod
+    from repro_torch.models import lm
+
+    def plain(q, k, v, **kw):
+        return fa.flash_attention_plain(q, k, v, **kw)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg32 = cfg.replace(dtype="float32")
+    dev = params["embed"].device
+    ctrl = ops.device_control(ctrl, dev)
+    with torch.no_grad():
+        tokens = torch.as_tensor(toks, device=dev).long()
+        B, S = tokens.shape
+        positions = lm.default_positions(cfg, B, S, dev)
+        pair, offset = (params["embed"][tokens].float(), None), 0
+        for stage, sp in zip(cfg.stages, params["backbone"]["stages"]):
+            for r in range(stage.repeat):
+                if not ctrl["layer_gate"][offset + r]:
+                    continue
+                for j, kind in enumerate(stage.pattern):
+                    p = {k: v[r].float()
+                         for k, v in sp[f"{j}:{kind}"].items()}
+                    if kind == "attn":
+                        pair = attn_mod.attention_block_pending(
+                            p, cfg32, *pair, ctrl, positions,
+                            attn_impl=plain)
+                    else:
+                        pair = ffn_mod.mlp_block_pending(p, cfg32, *pair,
+                                                         ctrl)
+            offset += stage.repeat
+        x = pair[0] if pair[1] is None else pair[0] + pair[1]
+        h = ops.subnet_norm(x.reshape(B * S, -1), params["final_gamma"],
+                            ctrl["subnet_id"], eps=cfg.norm_eps,
+                            kind=cfg.norm)
+        w = params.get("head")
+        w = params["embed"].T if w is None else w
+        return (h @ w.float()).reshape(B, S, -1).cpu().numpy()
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def window_check(torch, cut, steps: int = 4):
+    """A 2-layer ``cut`` of a sliding-window config at B = 1: a prompt of
+    the window plus 64 tokens, prefilled on the card in mask and in switch
+    mode (flash past the window) against the plain fp32 forward on the CPU
+    at every 64th position and the last 64; then the prompt and ``steps``
+    more tokens teacher-forced through decode steps on the card (the
+    rolling cache of window slots wraps at the window), the steps from the
+    prompt's last position on against the CPU forward at the same
+    positions. Within 2e-2 of max |logit|. Returns the worst errors."""
+    import numpy as np
+    from repro_torch.core import operators as ops
+    from repro_torch.core import subnet as sn
+    from repro_torch.models import lm
+    cfg, gpu, cfg32, cpu = cut
+    W = cfg.sliding_window
+    P = W + 64
+    toks = np.random.default_rng(7).integers(
+        0, cfg.vocab_size, (1, P + steps)).astype(np.int32)
+    ctrl = sn.make_control(cfg, sn.max_subnet(cfg))
+    pos = sorted(set(range(0, P, 64)) | set(range(P - 64, P)))
+    dec = list(range(P - 1, P + steps))
+    with torch.no_grad():
+        h = lm.hidden_states(cpu, cfg32, {"tokens": toks}, ctrl)
+        want = lm.head_logits(cpu, cfg32, h[:, pos + dec], ctrl).numpy()
+        del h
+        worst = {}
+        for mode in ("mask", "switch"):
+            h = lm.hidden_states(gpu, cfg, {"tokens": toks[:, :P]}, ctrl,
+                                 slice_mode=mode)
+            got = lm.head_logits(gpu, cfg, h[:, pos], ctrl).float().cpu()
+            worst[f"prefill_{mode}"] = rel_err(
+                got.numpy(), want[:, :len(pos)],
+                f"window prefill {mode} past {W}")
+            del h
+        dctrl = ops.device_control(ctrl, "cuda")
+        cache = lm.init_cache(cfg, 1, P + steps, device="cuda")
+        smax = cache["stages"][0]["0:attn"]["k"].shape[3]
+        if smax != W:
+            fail(f"window cache holds {smax} slots, not {W}")
+        errs = []
+        for i in range(P + steps):
+            lg, cache = lm.decode_step(gpu, cfg, toks[:, i:i + 1], dctrl,
+                                       cache, i)
+            if i >= P - 1:
+                errs.append(rel_err(lg[:, 0].float().cpu().numpy(),
+                                    want[:, len(pos) + i - (P - 1)],
+                                    f"window decode position {i}"))
+        worst["decode"] = max(errs)
+    return dict(window=W, prompt=P, decode_positions=[dec[0], dec[-1]],
+                cache_slots=smax, prefill_positions=len(pos), **worst)
 
 
 # --------------------------------------------------------------------------
@@ -1041,25 +1550,43 @@ def main(argv) -> int:
               f"the repository root", file=sys.stderr)
         return 3
     card = Card(torch)
-    phase_build(torch, card)
-    kernels = phase_kernels(torch, card)
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        say("seconds", phase=name, seconds=time.perf_counter() - t0)
+        return out
+
+    timed("build", phase_build, torch, card)
+    kernels = timed("kernels", phase_kernels, torch, card)
     if "--quick" in argv:
         return 0
-    path_launches = [phase_serve(torch), phase_decode(torch),
-                     phase_switch(torch)]
-    phase_trace(torch)
-    phase_reference(torch)
+    path_launches = [timed("serve", phase_serve, torch),
+                     timed("decode", phase_decode, torch),
+                     timed("switch", phase_switch, torch)]
+    timed("trace", phase_trace, torch)
+    timed("reference", phase_reference, torch)
+    path_launches += timed("configs", phase_configs, torch)
     line = []
     for name in PATH_KERNELS:
         route, source, replaces = SOURCES[name]
         k = kernels[name]
-        line.append({"name": name, "route": route, "source": source,
-                     "replaces": replaces,
-                     "launches": sum(n.get(name, 0) for n in path_launches),
-                     "max_abs_err": k["max_abs_err"], "ms": k["ms"],
-                     "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-                     "bound_by": k["bound_by"],
-                     "library_ms": k["library_ms"]})
+        entry = {"name": name, "route": route, "source": source,
+                 "replaces": replaces,
+                 "launches": sum(n.get(name, 0) for n in path_launches),
+                 "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+                 "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+                 "bound_by": k["bound_by"],
+                 "library_ms": k["library_ms"]}
+        if "head_dims" in k:
+            # the same numbers at the other configs' heads (CONFIG_HEADS)
+            entry["head_dims"] = {
+                key: {f: row[f] for f in (
+                    "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                    "bound_by", "library_ms", "device_ms",
+                    "library_device_ms")}
+                for key, row in k["head_dims"].items()}
+        line.append(entry)
     if any(e["launches"] <= 0 for e in line):
         fail("a kernel of the path was never launched")
     print(json.dumps({"kernels": line}), flush=True)

@@ -10,7 +10,12 @@ from typing import Dict, List
 
 from repro_torch.configs.base import SHAPES, ArchConfig, ShapeSpec, shape_applicable
 
-_ARCH_MODULES = ("qwen2_1p5b",)
+_ARCH_MODULES = (
+    "qwen2p5_14b",
+    "qwen2_1p5b",
+    "h2o_danube_3_4b",
+    "stablelm_3b",
+)
 
 _REGISTRY: Dict[str, ArchConfig] = {}
 

@@ -55,6 +55,15 @@
 //   block found by an int32 counter), which pays three round trips to L2
 //   on the critical path. No float atomics: the bits repeat from launch to
 //   launch, and the wrapper allocates nothing but the output.
+// - Head dims 80, 120 and 128 run one body, instantiated at each d, that
+//   works on a head padded to HD = 128 columns in shared memory and
+//   registers: the copies past column d zero-fill, Q past d is zero, so
+//   those columns add nothing to S = K Q^T and O's columns past d are 0
+//   and are not stored. Rows in device memory are d wide, and d is a
+//   compile-time constant of each instance, so every offset folds as it
+//   did when 128 was the only width. The padding costs at most 1.6x the
+//   tensor work at d = 80, which is not what bounds the kernel, and no
+//   bytes of device memory.
 // The same schedule is written in Python (kernels/decode_attention.py,
 // live_range / schedule / units) for the tests.
 #include <cuda_bf16.h>
@@ -65,7 +74,8 @@
 
 namespace {
 
-constexpr int HD = 128;         // head dim
+constexpr int HD = 128;         // head dim as laid out on the SM: d <= HD
+                                // padded with zero columns
 constexpr int G_MAX = 8;        // query heads per kv head: the 8 columns
 constexpr int WARPS = 4;
 constexpr int THREADS = WARPS * 32;
@@ -197,7 +207,7 @@ __device__ __forceinline__ Schedule schedule(int index, int window, int smax,
   return s;
 }
 
-template <int STAGES>
+template <int STAGES, int D>
 __global__ void __launch_bounds__(THREADS)
 decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
                         const __nv_bfloat16* __restrict__ kc,
@@ -206,6 +216,8 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
                         __nv_bfloat16* __restrict__ out, int G, int Smax,
                         int window, int n_split, int min_chunk,
                         float scale_log2) {
+  static_assert(D % 8 == 0 && D <= HD, "a row is whole 16-byte chunks");
+  constexpr int d = D;                        // the row width in memory
   extern __shared__ __align__(16) unsigned char smem[];
   const int row = blockIdx.x / n_split;       // b * Hkv + kv head
   const int split = blockIdx.x - row * n_split;   // the rank in the cluster
@@ -227,14 +239,15 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
   const int my_units = warp < n_units ? (n_units - warp + WARPS - 1) / WARPS
                                       : 0;
 
-  const long long rbase = static_cast<long long>(row) * Smax * HD;
+  const long long rbase = static_cast<long long>(row) * Smax * d;
   const __nv_bfloat16* kb = kc + rbase;
   const __nv_bfloat16* vb = vc + rbase;
   __nv_bfloat16* ring =
       reinterpret_cast<__nv_bfloat16*>(smem) + warp * STAGES * STAGE_ELEMS;
 
   // this warp's t-th unit into ring stage st: lanes 0-15 and 16-31 take two
-  // rows (512 contiguous bytes) an instruction; offsets past c1 zero-fill
+  // rows (2 * d contiguous bytes) an instruction; offsets past c1 and the
+  // chunks at and past column d zero-fill
   auto load = [&](int st, int t) {
     const int j0 = c0 + (warp + t * WARPS) * UNIT;
     __nv_bfloat16* ks = ring + st * STAGE_ELEMS;
@@ -244,10 +257,10 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
     for (int i = 0; i < UNIT / 2; ++i) {
       const int r = (lane >> 4) + 2 * i;
       const int j = j0 + r;
-      const bool ok = j < c1;
+      const bool ok = j < c1 && ch < d;
       int pos = sc.start + j;
       if (pos >= Smax) pos -= Smax;
-      const long long off = ok ? static_cast<long long>(pos) * HD + ch : 0;
+      const long long off = ok ? static_cast<long long>(pos) * d + ch : 0;
       cp_async16(ks + r * LDS + ch, kb + off, ok);
       cp_async16(vs + r * LDS + ch, vb + off, ok);
     }
@@ -260,17 +273,19 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
   }
 
   // Q^T as the B fragment of every k-step, columns = the group's heads
-  // (past G zero): b0 = Q[g][16k + 2qd..], b1 = Q[g][16k + 8 + 2qd..]
+  // (past G zero): b0 = Q[g][16k + 2qd..], b1 = Q[g][16k + 8 + 2qd..],
+  // zero at and past column d
   const int g8 = lane >> 2, qd = lane & 3;
   uint32_t qb[HD / 16][2];
   {
     const __nv_bfloat16* qrow =
-        q + (static_cast<long long>(row) * G + g8) * HD + 2 * qd;
+        q + (static_cast<long long>(row) * G + g8) * d + 2 * qd;
 #pragma unroll
     for (int k = 0; k < HD / 16; ++k) {
-      qb[k][0] = g8 < G ? *reinterpret_cast<const uint32_t*>(qrow + 16 * k)
-                        : 0u;
-      qb[k][1] = g8 < G
+      qb[k][0] = g8 < G && 16 * k < d
+                     ? *reinterpret_cast<const uint32_t*>(qrow + 16 * k)
+                     : 0u;
+      qb[k][1] = g8 < G && 16 * k + 8 < d
                      ? *reinterpret_cast<const uint32_t*>(qrow + 16 * k + 8)
                      : 0u;
     }
@@ -384,7 +399,7 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
   }
   __syncthreads();
 
-  const int d = tid;                          // one dim a thread
+  const int dim = tid;                        // one dim a thread
   float num[G_MAX], den[G_MAX], mg[G_MAX];
 #pragma unroll
   for (int g = 0; g < G_MAX; ++g) {
@@ -397,18 +412,20 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
     for (int w = 0; w < WARPS; ++w) {
       const float f = exp2f(wm[w * G_MAX + g] - M);
       dn += f * wl[w * G_MAX + g];
-      nm += f * wacc[(w * G_MAX + g) * WLD + d];
+      nm += f * wacc[(w * G_MAX + g) * WLD + dim];
     }
     mg[g] = M;
     den[g] = dn;
     num[g] = nm;
   }
-  __nv_bfloat16* orow = out + static_cast<long long>(row) * G * HD + d;
+  __nv_bfloat16* orow = out + static_cast<long long>(row) * G * d + dim;
   if (sc.n_live == 1) {                       // the only split: out, done
+    if (dim < d) {
 #pragma unroll
-    for (int g = 0; g < G_MAX; ++g) {
-      if (g >= G) break;
-      orow[g * HD] = __float2bfloat16(num[g] / fmaxf(den[g], 1e-30f));
+      for (int g = 0; g < G_MAX; ++g) {
+        if (g >= G) break;
+        orow[g * d] = __float2bfloat16(num[g] / fmaxf(den[g], 1e-30f));
+      }
     }
     return;
   }
@@ -421,18 +438,21 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
   for (int g = 0; g < G_MAX; ++g) {
     if (g >= G) break;
-    part[g * HD + d] = num[g];
-    if (d == 0) {
+    part[g * HD + dim] = num[g];
+    if (dim == 0) {
       part[G * HD + g] = mg[g];
       part[G * HD + 8 + g] = den[g];
     }
   }
   cluster_sync();
-  const int n_chunks = G * (HD / 4);
+  // float4 chunk c of the output: head g, columns 4 (c % (d / 4)) + 0..3,
+  // at chunk pc of the padded partial
+  const int n_chunks = G * (d / 4);
   const int per = (n_chunks + sc.n_live - 1) / sc.n_live;   // <= THREADS
   const int c = split * per + tid;
   if (tid < per && c < n_chunks) {
-    const int g = c / (HD / 4);
+    const int g = c / (d / 4);
+    const int pc = g * (HD / 4) + c % (d / 4);
     const uint32_t local = smem_addr(part);
     float M = NEG, dn = 0.f;
     float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -440,7 +460,7 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
       const uint32_t rp = map_rank(local, sp);
       const float ms = ld_cluster(rp + 4 * (G * HD + g));
       const float ls = ld_cluster(rp + 4 * (G * HD + 8 + g));
-      const float4 v = ld_cluster4(rp + 16 * c);
+      const float4 v = ld_cluster4(rp + 16 * pc);
       const float mn = fmaxf(M, ms);
       const float fo = exp2f(M - mn), fs = exp2f(ms - mn);
       M = mn;
@@ -454,13 +474,13 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
     uint2 u;
     u.x = pack_bf16(a.x / dn, a.y / dn);
     u.y = pack_bf16(a.z / dn, a.w / dn);
-    *reinterpret_cast<uint2*>(out + static_cast<long long>(row) * G * HD
+    *reinterpret_cast<uint2*>(out + static_cast<long long>(row) * G * d
                               + 4 * c) = u;
   }
   cluster_sync();
 }
 
-template <int STAGES>
+template <int STAGES, int D>
 int launch(const void* q, const void* k, const void* v, const void* index,
            void* out, int rows, int G, int Smax, int window, int n_split,
            int min_chunk, cudaStream_t stream) {
@@ -474,17 +494,17 @@ int launch(const void* q, const void* k, const void* v, const void* index,
     std::lock_guard<std::mutex> lock(mu);
     if (!(ready >> dev & 1)) {
       cudaError_t err = cudaFuncSetAttribute(
-          decode_attention_kernel<STAGES>,
+          decode_attention_kernel<STAGES, D>,
           cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<STAGES>());
       if (err == cudaSuccess)
         err = cudaFuncSetAttribute(
-            decode_attention_kernel<STAGES>,
+            decode_attention_kernel<STAGES, D>,
             cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
       if (err != cudaSuccess) return static_cast<int>(err);
       ready |= 1ull << dev;
     }
   }
-  const float scale_log2 = LOG2E / sqrtf(static_cast<float>(HD));
+  const float scale_log2 = LOG2E / sqrtf(static_cast<float>(D));
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = n_split;         // a row's splits
@@ -498,7 +518,7 @@ int launch(const void* q, const void* k, const void* v, const void* index,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, decode_attention_kernel<STAGES>,
+      &cfg, decode_attention_kernel<STAGES, D>,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(index),
@@ -507,11 +527,29 @@ int launch(const void* q, const void* k, const void* v, const void* index,
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
+template <int D>
+int launch_stages(int stages, const void* q, const void* k, const void* v,
+                  const void* index, void* out, int rows, int G, int Smax,
+                  int window, int n_split, int min_chunk,
+                  cudaStream_t stream) {
+  switch (stages) {
+    case 2:
+      return launch<2, D>(q, k, v, index, out, rows, G, Smax, window,
+                          n_split, min_chunk, stream);
+    case 3:
+      return launch<3, D>(q, k, v, index, out, rows, G, Smax, window,
+                          n_split, min_chunk, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
-// q: (B, Hkv*G, 1, 128), caches: (B, Hkv, Smax, 128), out: (B, Hkv*G, 1,
-// 128), all contiguous bf16; softmax scale 128 ** -0.5. index: one int32 in
-// device memory. The grid is B * Hkv clusters of n_split (1 to 16) blocks.
+// q: (B, Hkv*G, 1, d), caches: (B, Hkv, Smax, d), out: (B, Hkv*G, 1, d),
+// all contiguous bf16, d = head_dim in {80, 120, 128}; softmax scale
+// d ** -0.5. index: one int32 in device memory. The grid is B * Hkv
+// clusters of n_split (1 to 16) blocks.
 // `plan` packs min_chunk | stages << 16: the least positions a split takes
 // (a multiple of 16) and the ring's depth (2 or 3). The arguments are few
 // on purpose: each costs the caller host time through ctypes. Launches on
@@ -523,18 +561,22 @@ extern "C" int repro_decode_attention_bf16(
     int head_dim, int window, int n_split, int plan, void* stream) {
   if (B <= 0 || Hkv <= 0) return 0;
   const int min_chunk = plan & 0xffff, stages = plan >> 16;
-  if (head_dim != HD || G < 1 || G > G_MAX || Smax < 1 || n_split < 1 ||
+  if (G < 1 || G > G_MAX || Smax < 1 || n_split < 1 ||
       n_split > MAX_SPLIT || min_chunk < UNIT || min_chunk % UNIT)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int rows = B * Hkv;
-  switch (stages) {
-    case 2:
-      return launch<2>(q, k_cache, v_cache, index_ptr, out, rows, G, Smax,
-                       window, n_split, min_chunk, st);
-    case 3:
-      return launch<3>(q, k_cache, v_cache, index_ptr, out, rows, G, Smax,
-                       window, n_split, min_chunk, st);
+  switch (head_dim) {
+    case 80:
+      return launch_stages<80>(stages, q, k_cache, v_cache, index_ptr, out,
+                               rows, G, Smax, window, n_split, min_chunk, st);
+    case 120:
+      return launch_stages<120>(stages, q, k_cache, v_cache, index_ptr, out,
+                                rows, G, Smax, window, n_split, min_chunk,
+                                st);
+    case HD:
+      return launch_stages<HD>(stages, q, k_cache, v_cache, index_ptr, out,
+                               rows, G, Smax, window, n_split, min_chunk, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

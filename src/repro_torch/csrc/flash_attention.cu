@@ -51,6 +51,14 @@
 // XOR-swizzled by 16-byte chunk, and writes whole 16-byte chunks. The
 // tensor maps are cached by (pointer, shape, strides, box), so a call at a
 // shape and buffer seen before encodes none.
+//
+// Head dims 80, 120 and 128 run one body, instantiated at each d, on a
+// head padded to HD = 128 columns on the SM: the maps are d wide, so the
+// second 64-column box reads the columns past d as zeros (TMA fills what
+// lies out of bounds), those columns add nothing to S = Q K^T, O's columns
+// past d are 0, and only the d columns of a row are stored. The padding
+// costs 1.6x the tensor work at d = 80 and 1.07x at d = 120, and no bytes
+// of device memory; the softmax scale d ** -0.5 comes from the host.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -64,7 +72,8 @@
 
 namespace {
 
-constexpr int HD = 128;                  // head dim: two 64-column boxes
+constexpr int HD = 128;                  // padded head dim: two 64-column
+                                         // boxes, d <= HD
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr unsigned FULL = 0xffffffffu;
@@ -266,7 +275,7 @@ __device__ __forceinline__ void softmax_tile(
   for (int h = 0; h < 2; ++h) l[h] = l[h] * corr[h] + ls[h];
 }
 
-template <int KT>
+template <int KT, int D>
 __global__ void __launch_bounds__(THREADS, 3)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap tmq,
                  const __grid_constant__ CUtensorMap tmk,
@@ -453,12 +462,13 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tmq,
     asm volatile("bar.sync 1, 128;\n" ::: "memory");
   }
   // every packed row that is an output row of the block: a head slot below
-  // nh inside the group, a position below S; slots at or past nls
-  // (inactive heads) and blocks with no live kv tile write zeros
+  // nh inside the group, a position below S, its d / 8 chunks; slots at or
+  // past nls (inactive heads) and blocks with no live kv tile write zeros
   for (int idx = tid; idx < QM * 16; idx += 128) {
     const int r = idx >> 4, c = idx & 15;
     const int slot = r / np, p = r % np;
-    if (slot >= nh || w.h0 + slot >= G || p >= w.npos) continue;
+    if (slot >= nh || w.h0 + slot >= G || p >= w.npos || 8 * c >= D)
+      continue;
     uint4 val = make_uint4(0, 0, 0, 0);
     if (live && slot < w.nls)
       val = *reinterpret_cast<const uint4*>(
@@ -473,18 +483,20 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tmq,
 // host side: tensor maps and the launch
 // -------------------------------------------------------------------------
 
-// a (B, H, S, d = 128) bf16 tensor with element strides (sb, sh, ss), read
-// in boxes of 64 columns (128 bytes) x `rows` positions of one head with
-// the 128-byte swizzle; positions past S load as zeros. Maps are cached by
-// (pointer, shape, strides, box): the same key encodes the same map.
+// a (B, H, S, d) bf16 tensor with element strides (sb, sh, ss), read in
+// boxes of 64 columns (128 bytes) x `rows` positions of one head with the
+// 128-byte swizzle; positions past S and columns past d load as zeros.
+// Maps are cached by (pointer, shape, strides, box): the same key encodes
+// the same map, and d is in the key, so storage reused at another head dim
+// takes a map of its own.
 std::mutex maps_mu;
-std::map<std::array<long long, 8>, CUtensorMap> maps;
+std::map<std::array<long long, 9>, CUtensorMap> maps;
 constexpr size_t MAPS_MAX = 4096;
 
 bool tensor_map(CUtensorMap* map, const void* base, int B, int H, int S,
-                long long sb, long long sh, long long ss, int rows) {
-  const std::array<long long, 8> key = {
-      static_cast<long long>(reinterpret_cast<uintptr_t>(base)), B, H, S,
+                int d, long long sb, long long sh, long long ss, int rows) {
+  const std::array<long long, 9> key = {
+      static_cast<long long>(reinterpret_cast<uintptr_t>(base)), B, H, S, d,
       sb, sh, ss, rows};
   std::lock_guard<std::mutex> lock(maps_mu);
   const auto it = maps.find(key);
@@ -495,7 +507,7 @@ bool tensor_map(CUtensorMap* map, const void* base, int B, int H, int S,
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t dims[4] = {
-      static_cast<cuuint64_t>(HD), static_cast<cuuint64_t>(S),
+      static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(S),
       static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(ss) * 2,
                                  static_cast<cuuint64_t>(sh) * 2,
@@ -512,7 +524,7 @@ bool tensor_map(CUtensorMap* map, const void* base, int B, int H, int S,
   return true;
 }
 
-template <int KT>
+template <int KT, int D>
 int launch(const CUtensorMap& tq, const CUtensorMap& tk,
            const CUtensorMap& tv, void* o, int grid, int B, int Hkv, int G,
            int Sq, int Sk, int np, int nh, long long osb, long long osh,
@@ -528,28 +540,46 @@ int launch(const CUtensorMap& tq, const CUtensorMap& tk,
     std::lock_guard<std::mutex> lock(mu);
     if (!(ready >> dev & 1)) {
       const cudaError_t err = cudaFuncSetAttribute(
-          flash_fwd_kernel<KT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          flash_fwd_kernel<KT, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
           Tile<KT>::SMEM);
       if (err != cudaSuccess) return static_cast<int>(err);
       ready |= 1ull << dev;
     }
   }
-  flash_fwd_kernel<KT><<<grid, THREADS, Tile<KT>::SMEM, stream>>>(
+  flash_fwd_kernel<KT, D><<<grid, THREADS, Tile<KT>::SMEM, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), B, Hkv, G, Sq, Sk, np, nh,
       osb, osh, oss, causal, window, static_cast<const int*>(kv_len_ptr),
       kv_len_static, static_cast<const int*>(hw_ptr), hw_static, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int D>
+int launch_tiles(int kt, const CUtensorMap& tq, const CUtensorMap& tk,
+                 const CUtensorMap& tv, void* o, int grid, int B, int Hkv,
+                 int G, int Sq, int Sk, int np, int nh, int causal, int window,
+                 const void* kv_len_ptr, int kv_len_static, const void* hw_ptr,
+                 int hw_static, int Hq, cudaStream_t stream) {
+  static_assert(D % 8 == 0 && D <= HD, "a row is whole 16-byte chunks");
+  const long long oss = static_cast<long long>(Hq) * D;
+  const float scale_log2 = LOG2E / sqrtf(static_cast<float>(D));
+  return kt == 64
+      ? launch<64, D>(tq, tk, tv, o, grid, B, Hkv, G, Sq, Sk, np, nh,
+                      Sq * oss, D, oss, causal, window, kv_len_ptr,
+                      kv_len_static, hw_ptr, hw_static, scale_log2, stream)
+      : launch<32, D>(tq, tk, tv, o, grid, B, Hkv, G, Sq, Sk, np, nh,
+                      Sq * oss, D, oss, causal, window, kv_len_ptr,
+                      kv_len_static, hw_ptr, hw_static, scale_log2, stream);
+}
+
 }  // namespace
 
-// q: (B, Hq, Sq, 128), k/v: (B, Hkv, Sk, 128), bf16, any element strides
-// (b, h, s) that are multiples of 8 with contiguous, 16-byte aligned rows
-// (checked by the Python wrapper); o: a contiguous (B, Sq, Hq, 128)
-// buffer; softmax scale 128 ** -0.5. kv_len_ptr may be null, then
-// kv_len_static is used; so may hw_ptr (the head width, read by every
-// block), then hw_static (-1: every head is active). Inactive heads'
-// outputs are written as zeros. `plan` packs the block's shape:
+// q: (B, Hq, Sq, d), k/v: (B, Hkv, Sk, d), bf16, d = head_dim in {80, 120,
+// 128}, any element strides (b, h, s) that are multiples of 8 with
+// contiguous, 16-byte aligned rows (checked by the Python wrapper); o: a
+// contiguous (B, Sq, Hq, d) buffer; softmax scale d ** -0.5. kv_len_ptr
+// may be null, then kv_len_static is used; so may hw_ptr (the head width,
+// read by every block), then hw_static (-1: every head is active).
+// Inactive heads' outputs are written as zeros. `plan` packs the block's shape:
 // np | nh << 8 | kt << 16, where a block takes nh head slots of np
 // positions (np a multiple of 8, nh * np <= 64) and kv tiles of kt keys
 // (32 or 64). The arguments are few on purpose: each
@@ -557,7 +587,7 @@ int launch(const CUtensorMap& tq, const CUtensorMap& tk,
 // of the launch (0 = launched).
 extern "C" int repro_flash_attention_bf16(
     const void* q, const void* k, const void* v, void* o,
-    int B, int Hq, int Hkv, int Sq, int Sk,
+    int B, int Hq, int Hkv, int Sq, int Sk, int head_dim,
     long long qsb, long long qsh, long long qss,
     long long ksb, long long ksh, long long kss,
     long long vsb, long long vsh, long long vss,
@@ -565,7 +595,8 @@ extern "C" int repro_flash_attention_bf16(
     const void* hw_ptr, int hw_static, int plan, void* stream) {
   const int np = plan & 0xff, nh = plan >> 8 & 0xff, kt = plan >> 16;
   if (B <= 0 || Hq <= 0 || Sq <= 0) return 0;
-  if (Hkv <= 0 || Hq % Hkv != 0 || Sk <= 0 || np <= 0 || np % 8 != 0 ||
+  if ((head_dim != 80 && head_dim != 120 && head_dim != HD) || Hkv <= 0 ||
+      Hq % Hkv != 0 || Sk <= 0 || np <= 0 || np % 8 != 0 ||
       nh <= 0 || nh * np > QM || (kt != 32 && kt != 64))
     return static_cast<int>(cudaErrorInvalidValue);
   const int G = Hq / Hkv;
@@ -573,18 +604,25 @@ extern "C" int repro_flash_attention_bf16(
       * ((G + nh - 1) / nh) * ((Sq + np - 1) / np);
   if (blocks >= (1ll << 31)) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap tq, tk, tv;
-  if (!tensor_map(&tq, q, B, Hq, Sq, qsb, qsh, qss, np) ||
-      !tensor_map(&tk, k, B, Hkv, Sk, ksb, ksh, kss, kt) ||
-      !tensor_map(&tv, v, B, Hkv, Sk, vsb, vsh, vss, kt))
+  const int d = head_dim;
+  if (!tensor_map(&tq, q, B, Hq, Sq, d, qsb, qsh, qss, np) ||
+      !tensor_map(&tk, k, B, Hkv, Sk, d, ksb, ksh, kss, kt) ||
+      !tensor_map(&tv, v, B, Hkv, Sk, d, vsb, vsh, vss, kt))
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long oss = static_cast<long long>(Hq) * HD;
-  constexpr float scale_log2 = 0.08838834764831845f * LOG2E;  // HD ** -0.5
   const auto st = static_cast<cudaStream_t>(stream);
-  return kt == 64
-      ? launch<64>(tq, tk, tv, o, static_cast<int>(blocks), B, Hkv, G, Sq,
-                   Sk, np, nh, Sq * oss, HD, oss, causal, window, kv_len_ptr,
-                   kv_len_static, hw_ptr, hw_static, scale_log2, st)
-      : launch<32>(tq, tk, tv, o, static_cast<int>(blocks), B, Hkv, G, Sq,
-                   Sk, np, nh, Sq * oss, HD, oss, causal, window, kv_len_ptr,
-                   kv_len_static, hw_ptr, hw_static, scale_log2, st);
+  const int grid = static_cast<int>(blocks);
+  switch (d) {
+    case 80:
+      return launch_tiles<80>(kt, tq, tk, tv, o, grid, B, Hkv, G, Sq, Sk, np,
+                              nh, causal, window, kv_len_ptr, kv_len_static,
+                              hw_ptr, hw_static, Hq, st);
+    case 120:
+      return launch_tiles<120>(kt, tq, tk, tv, o, grid, B, Hkv, G, Sq, Sk,
+                               np, nh, causal, window, kv_len_ptr,
+                               kv_len_static, hw_ptr, hw_static, Hq, st);
+    default:
+      return launch_tiles<HD>(kt, tq, tk, tv, o, grid, B, Hkv, G, Sq, Sk, np,
+                              nh, causal, window, kv_len_ptr, kv_len_static,
+                              hw_ptr, hw_static, Hq, st);
+  }
 }

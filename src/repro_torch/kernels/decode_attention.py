@@ -24,6 +24,9 @@ splits are one thread-block cluster: a row with one live split writes its
 output from one block, otherwise the live blocks merge their fp32 partials
 through distributed shared memory in split order (``split_merge`` is the
 same arithmetic on the CPU). A call allocates its output and nothing else.
+Each head dim of ``HEAD_DIMS`` runs the same body, compiled at that d, on a
+head padded to 128 columns on the SM (zero columns past d add nothing and
+are not stored); rows in device memory are d wide.
 """
 from __future__ import annotations
 
@@ -38,7 +41,7 @@ from repro_torch import compat
 from repro_torch.kernels import build, ref
 
 NAME = "decode_attention"
-HEAD_DIMS = (128,)
+HEAD_DIMS = (80, 120, 128)
 G_MAX = 8
 _C = "repro_decode_attention_bf16"
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
@@ -204,8 +207,9 @@ def _splits(rows: int, smax: int, device: torch.device, plan: Plan) -> int:
 
 def decode_attention(q, k_cache, v_cache, index, *, window=0):
     """q: (B, Hq, 1, d); caches: (B, Hkv, Smax, d); bf16 contiguous CUDA
-    tensors, d = 128, Hq / Hkv <= 8. ``index``: int32 CUDA tensor with one
-    element (or an int, written to the device without a host sync).
+    tensors, d in ``HEAD_DIMS``, Hq / Hkv <= 8. ``index``: int32 CUDA
+    tensor with one element (or an int, written to the device without a
+    host sync).
     Returns (B, Hq, 1, d) bf16."""
     for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
         if t.device.type != "cuda" or t.device != q.device:

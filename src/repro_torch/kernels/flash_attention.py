@@ -12,7 +12,10 @@ staged once for all the heads of the block; S = Q K^T and O += P V run on
 ``wgmma`` (P from registers, V as an N-major operand); m, l and the
 accumulator stay in fp32 registers. With ``head_width`` (WeightSlice
 switch mode) the kernel reads the width on the card, computes only the
-active heads and writes zeros for the rest.
+active heads and writes zeros for the rest. Each head dim of ``HEAD_DIMS``
+runs the same body, compiled at that d, on a head padded to 128 columns on
+the SM (the tensor maps are d wide and read zeros past d); only d columns
+are stored.
 
 What bounds it on the H100: at the served S = 16 the latency of one
 block's chain of loads and products; the bytes it must move (q, k, v, o
@@ -35,9 +38,9 @@ from repro_torch import compat
 from repro_torch.kernels import build, ref
 
 NAME = "flash_attention"
-HEAD_DIMS = (128,)
+HEAD_DIMS = (80, 120, 128)
 _C = "repro_flash_attention_bf16"
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
              + [ctypes.c_longlong] * 9
              + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
                 ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
@@ -165,7 +168,8 @@ def _device_int(name: str, value, device):
 
 def flash_attention(q, k, v, *, causal=True, window=0, kv_len=None,
                     head_width=None):
-    """q: (B, Hq, Sq, d); k/v: (B, Hkv, Sk, d); bf16 CUDA tensors, d = 128.
+    """q: (B, Hq, Sq, d); k/v: (B, Hkv, Sk, d); bf16 CUDA tensors, d in
+    ``HEAD_DIMS``.
     ``kv_len``: None (all of Sk), an int, or an int32 CUDA tensor with one
     element (read by the kernel). ``head_width``: None (every head), an
     int, or an int32 CUDA tensor with one element (read by the kernel):
@@ -215,7 +219,7 @@ def _launch(q, k, v, causal, window, kv_len, head_width, plan: Plan):
                     ).transpose(1, 2)
     fn = build.function(_C, _ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-             B, Hq, Hkv, Sq, Sk,
+             B, Hq, Hkv, Sq, Sk, d,
              *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
              int(bool(causal)), int(window), *kv_len, *head_width, plan.word,
              torch.cuda.current_stream(q.device).cuda_stream)

@@ -10,10 +10,12 @@ can choose, profiles the warmed executor on this device (wall clock per
 subnet and batch), derives the arrival rate and SLO from the device's own
 latencies, and serves a trace through the unchanged scheduling stack.
 
-``--size full`` (the default on ``--device cuda``) keeps the published
-widths and depth; ``--size reduced`` is the small fp32 twin of the JAX
-launcher and runs with ``--device cpu`` (the default there), since the
-CUDA kernels take bf16 with head_dim 128. ``--slice-mode switch`` serves
+``--arch`` names any registered config (``repro_torch.configs``):
+qwen2-1.5b, qwen2.5-14b, stablelm-3b or h2o-danube-3-4b. ``--size full``
+(the default on ``--device cuda``) keeps the published widths and depth;
+``--size reduced`` is the small fp32 twin of the JAX launcher and runs
+with ``--device cpu`` (the default there), since the CUDA kernels take
+bf16 with head_dim 80, 120 or 128. ``--slice-mode switch`` serves
 with WeightSlice switch mode (the ``sliced_matmul`` kernel computes only
 the active FFN and head widths) instead of the default mask mode. The
 output JSON reports the slice mode, the kernel builds seen while serving
@@ -131,7 +133,7 @@ def parse_args(argv: Optional[List[str]] = None):
         args.size = "full" if args.device == "cuda" else "reduced"
     if args.device == "cuda" and args.size == "reduced":
         ap.error("--size reduced has head_dim 32 in fp32; the CUDA kernels "
-                 "take bf16 with head_dim 128: use --device cpu")
+                 "take bf16 with head_dim 80, 120 or 128: use --device cpu")
     return args
 
 

@@ -47,6 +47,29 @@ def test_port_imports_without_jax_or_repro():
     assert int(proc.stdout.strip().splitlines()[-1]) >= 25
 
 
+_CONFIGS_CHILD = _CHILD.split("import repro_torch")[0] + r"""
+from repro_torch.configs import get_config, list_configs
+for name in ("qwen2.5-14b", "stablelm-3b", "h2o-danube-3-4b"):
+    get_config(name)
+mods = ("qwen2p5_14b", "stablelm_3b", "h2o_danube_3_4b")
+assert all(f"repro_torch.configs.{{m}}" in sys.modules for m in mods)
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+assert not leaked, leaked
+print(len(list_configs()))
+"""
+
+
+def test_config_modules_import_without_jax_or_repro():
+    """The three dense configs beside qwen2-1.5b load under the same
+    blocker, each from its own module of the port."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _CONFIGS_CHILD.format(blocked=BLOCKED)],
+        cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+        capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.strip().splitlines()[-1]) == 4
+
+
 def test_no_source_names_jax_or_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py", ROOT / "tools" / "flash_bench.py",

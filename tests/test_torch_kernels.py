@@ -275,6 +275,127 @@ def test_sliced_matmul_segments_match_jax_gqa_projection(kv, group, hd, dtype):
 
 
 # --------------------------------------------------------------------------
+# the head dims of the other dense configs: 80 (stablelm-3b, MHA) and 120
+# (h2o-danube-3-4b, G = 4), with G = 1, 4 and 5 (qwen2.5-14b's group)
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("G", [1, 4, 5])
+@pytest.mark.parametrize("d", [80, 120])
+def test_flash_attention_plain_matches_jax_at_head_dims(d, G, dtype):
+    """The plain version at d = 80 and 120 over 2 kv heads, with a window
+    and ``kv_len`` (a device int), against JAX's dense oracle, and against
+    the Pallas kernel in interpret mode in fp32 on the corner cases, as
+    :func:`test_flash_attention_plain_matches_jax` runs it."""
+    B, Hkv, S = 1, 2, 40
+    rng = np.random.default_rng(d + G)
+    jq, tq = _pair(rng, (B, G * Hkv, S, d), dtype)
+    jk, tk = _pair(rng, (B, Hkv, S, d), dtype)
+    jv, tv = _pair(rng, (B, Hkv, S, d), dtype)
+    for window, kv_len in ((0, None), (16, 25), (16, None)):
+        want_d = jref.flash_attention_dense_ref(
+            jq, jk, jv, causal=True, window=window, kv_len=kv_len)
+        t_len = (None if kv_len is None
+                 else torch.tensor(kv_len, dtype=torch.int32))
+        got = ops.flash_attention(tq, tk, tv, causal=True, window=window,
+                                  kv_len=t_len, q_block=16, kv_block=16)
+        _close(got, want_d, dtype)
+        if dtype == "float32" and (window == 0) == (kv_len is None):
+            want_k = jops.flash_attention(jq, jk, jv, causal=True,
+                                          window=window, kv_len=kv_len,
+                                          q_block=16, kv_block=16,
+                                          tier="interpret")
+            _close(got, want_k, dtype)
+
+
+@pytest.mark.parametrize("G", [1, 4, 5])
+@pytest.mark.parametrize("d", [80, 120])
+def test_flash_attention_head_width_matches_jax_at_head_dims(d, G):
+    """``head_width`` at d = 80 and 120: the active heads (a prefix of
+    each kv group under GQA, of the heads under MHA) against JAX's
+    flash_attention on those heads alone, in interpret mode (fp32);
+    inactive heads exactly 0."""
+    B, Hkv, S = 1, 2 if G > 1 else 4, 12
+    Hq = G * Hkv
+    rng = np.random.default_rng(30 + d + G)
+    jq, tq = _pair(rng, (B, Hq, S, d), "float32")
+    jk, tk = _pair(rng, (B, Hkv, S, d), "float32")
+    jv, tv = _pair(rng, (B, Hkv, S, d), "float32")
+    if G > 1:
+        a = max(1, round(G * 0.5))
+        hw = a * Hkv
+        qs = jq.reshape(B, Hkv, G, S, d)[:, :, :a].reshape(B, Hkv * a, S, d)
+        ks, vs = jk, jv
+        act = [j * G + h for j in range(Hkv) for h in range(a)]
+    else:
+        hw = Hq // 2
+        qs, ks, vs = jq[:, :hw], jk[:, :hw], jv[:, :hw]
+        act = list(range(hw))
+    idle = [h for h in range(Hq) if h not in act]
+    want = jops.flash_attention(qs, ks, vs, causal=True, q_block=8,
+                                kv_block=8, tier="interpret")
+    got = ops.flash_attention(tq, tk, tv, causal=True,
+                              head_width=torch.tensor(hw, dtype=torch.int32),
+                              q_block=8, kv_block=8)
+    _close(got[:, act], want, "float32")
+    assert (got[:, idle] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("G", [1, 4, 5])
+@pytest.mark.parametrize("d", [80, 120])
+def test_decode_attention_plain_matches_jax_at_head_dims(d, G, dtype):
+    """The plain decode at d = 80 and 120 over 2 kv heads, every index
+    class and a window that wraps, against JAX's dense oracle, and the
+    Pallas kernel in interpret mode in fp32; the kernel's split-then-merge
+    arithmetic (``split_merge``) against the same oracle."""
+    B, Hkv, Smax = 2, 2, 48
+    rng = np.random.default_rng(40 + d + G)
+    jq, tq = _pair(rng, (B, G * Hkv, 1, d), dtype)
+    jk, tk = _pair(rng, (B, Hkv, Smax, d), dtype)
+    jv, tv = _pair(rng, (B, Hkv, Smax, d), dtype)
+    for idx in (0, 20, Smax - 1):
+        for window in (0, 16):
+            want_d = jref.decode_attention_dense_ref(jq, jk, jv, idx,
+                                                     window=window)
+            t_idx = torch.tensor(idx, dtype=torch.int32)
+            got = ops.decode_attention(tq, tk, tv, t_idx, window=window,
+                                       kv_block=16)
+            _close(got, want_d, dtype)
+            if dtype == "float32":
+                want_k = jops.decode_attention(jq, jk, jv, jnp.int32(idx),
+                                               window=window, kv_block=16,
+                                               tier="interpret")
+                _close(got, want_k, dtype)
+                _close(da.split_merge(tq, tk, tv, idx, window=window,
+                                      n_split=3), want_d, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kv,group,hd", [(2, 4, 120), (4, 1, 80),
+                                         (2, 5, 128)])
+def test_sliced_matmul_segments_match_jax_gqa_projection_at_head_dims(
+        kv, group, hd, dtype):
+    """Segments of 480 (h2o-danube-3-4b's 4 heads of 120 a kv group) and
+    of 80 (one head of stablelm-3b's width a segment), and qwen2.5-14b's
+    5 heads of 128: the port's segmented product against JAX's GQA output
+    projection on the first ``a`` heads of every segment."""
+    M, d = 6, 32
+    rng = np.random.default_rng(50 + hd)
+    jo, to = _pair(rng, (M, kv * group * hd), dtype)
+    jw, tw = _pair(rng, (kv * group * hd, d), dtype)
+    for a in range(1, group + 1):
+        os_ = jo.reshape(M, kv, group, hd)[:, :, :a].reshape(M, kv * a * hd)
+        ws = jw.reshape(kv, group, hd, d)[:, :a].reshape(kv * a * hd, d)
+        want = jnp.matmul(os_.astype(jnp.float32), ws.astype(jnp.float32))
+        got = sm.sliced_matmul_plain(to, tw, torch.tensor(a * hd), None,
+                                     segments=kv)
+        assert got.dtype == to.dtype and got.shape == (M, d)
+        _close(got, want, dtype)
+
+
+# --------------------------------------------------------------------------
 # device-decided dispatch: no fallback in either direction
 # --------------------------------------------------------------------------
 

@@ -74,14 +74,111 @@ def test_flash_attention_kernel_matches_plain(cuda, S, window, kv_len, layout,
         assert (got[:, idle] == 0).all()
 
 
+# the heads of each head dim the kernels are built for: stablelm-3b's MHA
+# at d = 80 (G = 1), h2o-danube-3-4b's G = 4 at d = 120, qwen2.5-14b's G = 5
+# at d = 128, with 2 kv heads (8 under MHA) to keep the cases small
+HEAD_DIM_HEADS = {80: (8, 8), 120: (8, 2), 128: (10, 2)}
+GUARD = 64          # elements past an output, which no launch may write
+
+
+def _guarded(shape, cuda):
+    """A bf16 buffer of ``shape`` followed by GUARD elements, all 7.0:
+    (the output view, the guard view)."""
+    n = 1
+    for s in shape:
+        n *= s
+    buf = torch.full((n + GUARD,), 7.0, dtype=torch.bfloat16, device=cuda)
+    return buf[:n].view(shape), buf[n:]
+
+
+def _flash_into(o, q, k, v, *, window=0, kv_len=None, head_width=None):
+    """One launch of the flash kernel's C entry point writing into ``o``, a
+    contiguous (B, Sq, Hq, d) buffer, with the wrapper's plan."""
+    B, Hq, Sq, d = q.shape
+    kvl = (None, k.shape[2]) if kv_len is None else (kv_len.data_ptr(), 0)
+    hw = ((None, -1) if head_width is None
+          else (head_width.data_ptr(), 0)
+          if isinstance(head_width, torch.Tensor) else (None, head_width))
+    fn = build.function(fa._C, fa._ARGTYPES)
+    build.check(fa.NAME, fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        B, Hq, k.shape[1], Sq, k.shape[2], d,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], 1, int(window),
+        *kvl, *hw, fa.pack_plan(Sq, Hq // k.shape[1]).word,
+        torch.cuda.current_stream(q.device).cuda_stream))
+
+
+@pytest.mark.parametrize("layout", ["bhsd", "bshd-view"])
+@pytest.mark.parametrize("S,window,kv_len", FLASH_CASES)
+@pytest.mark.parametrize("d", [80, 120])
+def test_flash_attention_kernel_matches_plain_at_head_dims(cuda, d, S, window,
+                                                           kv_len, layout):
+    """d = 80 (MHA, stablelm-3b's heads) and d = 120 (G = 4, h2o-danube's)
+    over the cases of d = 128: against the plain version at every head
+    width (half of them as a device tensor), two launches bitwise equal,
+    inactive heads exactly 0, and nothing written past the output's d
+    columns (the guard after it keeps its value)."""
+    Hq, Hkv = HEAD_DIM_HEADS[d]
+    gen = torch.Generator(device=cuda).manual_seed(S + d)
+    if layout == "bhsd":
+        q = _randn(gen, 2, Hq, S, d, dev=cuda)
+        k = _randn(gen, 2, Hkv, S, d, dev=cuda)
+        v = _randn(gen, 2, Hkv, S, d, dev=cuda)
+    else:
+        qkv = _randn(gen, 2, S, Hq + 2 * Hkv, d, dev=cuda)
+        q, k, v = (t.transpose(1, 2)
+                   for t in qkv.split([Hq, Hkv, Hkv], dim=2))
+    kvl = None if kv_len is None else _i32(kv_len, cuda)
+    for head_width in (None, _i32(Hq // 2, cuda), Hq):
+        kw = dict(window=window, kv_len=kvl, head_width=head_width)
+        got = fa.flash_attention(q, k, v, **kw)
+        want = fa.flash_attention_plain(q, k, v, **kw)
+        torch.testing.assert_close(got.float(), want.float(), **TOL)
+        assert torch.equal(got, fa.flash_attention(q, k, v, **kw))
+        if head_width is not None:
+            idle = ~ref.head_active(Hq, Hkv, head_width, cuda)
+            assert (got[:, idle] == 0).all()
+        o, guard = _guarded((2, S, Hq, d), cuda)
+        _flash_into(o, q, k, v, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(o.transpose(1, 2), got)
+        assert (guard == 7.0).all()
+
+
+def test_flash_attention_kernel_takes_no_stale_map(cuda):
+    """d = 128 and then d = 80 on the same storage with the same strides
+    (the d = 80 tensors are views of the first 80 columns): the tensor
+    maps are keyed by d, so the second call reads rows 80 wide, and each
+    call matches the plain version on its own tensors."""
+    gen = torch.Generator(device=cuda).manual_seed(21)
+    q = _randn(gen, 2, 10, 64, 128, dev=cuda)
+    k = _randn(gen, 2, 2, 64, 128, dev=cuda)
+    v = _randn(gen, 2, 2, 64, 128, dev=cuda)
+    for dd in (128, 80, 128, 120):
+        qd, kd, vd = q[..., :dd], k[..., :dd], v[..., :dd]
+        got = fa.flash_attention(qd, kd, vd)
+        want = fa.flash_attention_plain(qd.contiguous(), kd.contiguous(),
+                                        vd.contiguous())
+        assert got.shape == (2, 10, 64, dd)
+        torch.testing.assert_close(got.float(), want.float(), **TOL)
+
+
 def test_flash_attention_kernel_refuses_what_it_does_not_take(cuda):
-    """The wrapper raises, before any launch, on a head_dim it was not
-    built for, rows that are not 16-byte aligned, a kv_len tensor of
-    another type and a negative head width."""
+    """The wrappers raise, before any launch, on a head_dim they were not
+    built for (flash and decode), rows that are not 16-byte aligned, a
+    kv_len tensor of another type and a negative head width."""
     q = torch.zeros((1, 12, 16, 128), dtype=torch.bfloat16, device=cuda)
     k = torch.zeros((1, 2, 16, 128), dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_attention(q[..., :64], k[..., :64], k[..., :64])
+    assert fa.HEAD_DIMS == da.HEAD_DIMS == (80, 120, 128)
+    for d in (64, 96):
+        qd = q[..., :d].contiguous()
+        kd = k[..., :d].contiguous()
+        with pytest.raises(ValueError, match="head_dim"):
+            fa.flash_attention(qd, kd, kd)
+        with pytest.raises(ValueError, match="head_dim"):
+            da.decode_attention(qd[:, :, :1].contiguous(), kd, kd, 0)
     buf = torch.zeros(q.numel() + 4, dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError, match="aligned"):
         fa.flash_attention(buf[4:].view(q.shape), k, k)   # 8-byte offset
@@ -120,6 +217,35 @@ def test_decode_attention_kernel_matches_plain(cuda, G, B, Smax):
             torch.testing.assert_close(got.float(), want.float(), **TOL)
             assert torch.equal(got, da.decode_attention(q, kc, vc, idx,
                                                         window=window))
+
+
+@pytest.mark.parametrize("Smax", [16, 100, 256, 2048])
+@pytest.mark.parametrize("G", [1, 4, 5])
+@pytest.mark.parametrize("d", [80, 120])
+def test_decode_attention_kernel_matches_plain_at_head_dims(cuda, d, G, Smax):
+    """d = 80 and 120 with G = 1 (stablelm-3b), 4 (h2o-danube-3-4b) and 5
+    (qwen2.5-14b) over 2 kv heads, B = 8, every index class, window 0 and
+    64: against the plain version, two launches bitwise equal, and nothing
+    written past the output's d columns (the guard after it keeps its
+    value), with one live split and with a row's splits merged."""
+    gen = torch.Generator(device=cuda).manual_seed(d + G)
+    q = _randn(gen, 8, 2 * G, 1, d, dev=cuda)
+    kc = _randn(gen, 8, 2, Smax, d, dev=cuda)
+    vc = _randn(gen, 8, 2, Smax, d, dev=cuda)
+    for index in sorted({0, 3, Smax // 2, Smax - 1}):
+        idx = torch.tensor(index, dtype=torch.int32, device=cuda)
+        for window in (0, 64):
+            got = da.decode_attention(q, kc, vc, idx, window=window)
+            want = da.decode_attention_plain(q, kc, vc, idx, window=window)
+            torch.testing.assert_close(got.float(), want.float(), **TOL)
+            assert torch.equal(got, da.decode_attention(q, kc, vc, idx,
+                                                        window=window))
+            out, guard = _guarded(q.shape, cuda)
+            build.check(da.NAME, da._launch(q, kc, vc, idx, out, window,
+                                            da.PLAN))
+            torch.cuda.synchronize()
+            assert torch.equal(out, got)
+            assert (guard == 7.0).all()
 
 
 def test_decode_attention_is_one_kernel_per_call(cuda):
@@ -168,7 +294,7 @@ def test_decode_attention_allocates_only_its_output(cuda):
 
 def test_decode_attention_kernel_refuses_a_split_past_a_cluster(cuda):
     """The entry point refuses more splits than a cluster holds, a plan it
-    was not built for and a head_dim other than 128, before anything
+    was not built for and a head_dim it was not built for, before anything
     runs."""
     q = torch.ones((8, 12, 1, 128), dtype=torch.bfloat16, device=cuda)
     kc = torch.ones((8, 2, 256, 128), dtype=torch.bfloat16, device=cuda)
@@ -185,6 +311,7 @@ def test_decode_attention_kernel_refuses_a_split_past_a_cluster(cuda):
     assert call(4, da.Plan(64, 4).word) != 0
     assert call(4, da.Plan(24, 2).word) != 0
     assert call(4, da.PLAN.word, head_dim=64) != 0
+    assert call(4, da.PLAN.word, head_dim=96) != 0
     torch.cuda.synchronize()
     assert (out == 7.0).all()
     assert call(4, da.PLAN.word) == 0
@@ -365,6 +492,44 @@ def test_sliced_matmul_kernel_takes_strided_segments(cuda):
                 sm.sliced_matmul_plain(og, wg, act, None).float(), **TOL)
 
 
+# the switch path's projections of the three dense configs beside
+# qwen2-1.5b: wo in segments of 480 (h2o-danube-3-4b, 8 kv groups of 4
+# heads of 120), 640 (qwen2.5-14b, 8 groups of 5 heads of 128) and one of
+# 2560 (stablelm-3b, MHA), at the full and the half head width; the FFN at
+# each config's d_ff and its narrowest width
+CONFIG_PROJECTIONS = [
+    ("danube wo", 3840, 3840, 480, 8), ("danube wo", 3840, 3840, 240, 8),
+    ("14b wo", 5120, 5120, 640, 8), ("14b wo", 5120, 5120, 256, 8),
+    ("stablelm wo", 2560, 2560, 2560, 1), ("stablelm wo", 2560, 2560, 1280, 1),
+    ("danube down", 10240, 3840, 5120, 1), ("14b down", 13824, 5120, 6912, 1),
+    ("stablelm down", 6912, 2560, 3456, 1)]
+
+
+@pytest.mark.parametrize("M", [8, 128])
+@pytest.mark.parametrize("label,K,N,ai,nseg", CONFIG_PROJECTIONS)
+def test_sliced_matmul_kernel_at_config_projections(cuda, label, K, N, ai,
+                                                    nseg, M):
+    """Segments that are not a multiple of the kernel's 64-deep K step (480
+    is 7.5 steps, so a step reads the next segment's first rows, which the
+    kernel zeroes), against the plain version, two launches bitwise
+    equal; and the FFN up projection to those widths, zero past them."""
+    gen = torch.Generator(device=cuda).manual_seed(K + ai + M)
+    x, w = _randn(gen, M, K, dev=cuda), _randn(gen, K, N, dev=cuda)
+    a = _i32(ai, cuda)
+    got = sm.sliced_matmul(x, w, a, None, segments=nseg)
+    torch.testing.assert_close(
+        got.float(),
+        sm.sliced_matmul_plain(x, w, a, None, segments=nseg).float(), **TOL)
+    assert torch.equal(got, sm.sliced_matmul(x, w, a, None, segments=nseg))
+    if nseg == 1 and label.endswith("down"):
+        xu, wu = _randn(gen, M, N, dev=cuda), _randn(gen, N, K, dev=cuda)
+        up = sm.sliced_matmul(xu, wu, None, a)
+        torch.testing.assert_close(
+            up.float(), sm.sliced_matmul_plain(xu, wu, None, a).float(),
+            **TOL)
+        assert not up[:, ai:].any()
+
+
 def test_sliced_matmul_kernel_over_row_counts(cuda):
     """Every row count the schedule treats apart: one block tile of 64 rows
     or more, a ragged last tile, and a prefill of 2048 rows, at FFN widths
@@ -482,6 +647,53 @@ def _small_cfg():
         dtype="bfloat16",
         elastic=ElasticSpec(depth_fracs=(1 / 3, 2 / 3, 1.0),
                             ffn_fracs=(0.5, 1.0), head_fracs=(0.5, 1.0)))
+
+
+def _small_cfg_at(d):
+    """Small twins at the new head dims: stablelm-3b's family at d = 80
+    (MHA, layernorm, 25% rotary) and h2o-danube-3-4b's at d = 120 (G = 4,
+    a sliding window of 16), bf16 with 3 layers."""
+    from repro_torch.configs.base import ArchConfig, ElasticSpec, Stage
+    kw = (dict(n_heads=4, n_kv_heads=4, norm="layernorm", rotary_pct=0.25)
+          if d == 80 else dict(n_heads=8, n_kv_heads=2, sliding_window=16))
+    return ArchConfig(
+        name=f"small-h{d}", family="dense",
+        stages=(Stage(("attn", "mlp"), repeat=3),), d_model=320, d_ff=512,
+        vocab_size=1000, head_dim=d, dtype="bfloat16",
+        elastic=ElasticSpec(depth_fracs=(1 / 3, 2 / 3, 1.0),
+                            ffn_fracs=(0.5, 1.0), head_fracs=(0.5, 1.0)),
+        **kw)
+
+
+@pytest.mark.parametrize("slice_mode", ["mask", "switch"])
+@pytest.mark.parametrize("d", [80, 120])
+def test_lm_on_card_matches_cpu_plain_path_at_head_dims(cuda, d, slice_mode):
+    """The small twins on the card against the plain fp32 path on the CPU,
+    for every subnet: forward logits, and 20 decode steps of the widest
+    subnet (past the window of 16 at d = 120, so the rolling cache
+    wraps)."""
+    import numpy as np
+    from repro_torch.core import subnet as sn
+    from repro_torch.models import lm
+    cfg = _small_cfg_at(d)
+    gpu = lm.init_model(cfg, torch.Generator(device=cuda).manual_seed(d),
+                        cuda)
+    cpu = lm.from_jax_params(_to_numpy(gpu), device="cpu")
+    cfg32 = cfg.replace(dtype="float32")
+    toks = np.random.default_rng(d).integers(0, cfg.vocab_size, (2, 24))
+    with torch.no_grad():
+        for sub in sn.enumerate_space(cfg):
+            ctrl = sn.make_control(cfg, sub)
+            _close_rel(lm.forward(gpu, cfg, {"tokens": toks}, ctrl,
+                                  slice_mode=slice_mode),
+                       lm.forward(cpu, cfg32, {"tokens": toks}, ctrl))
+        cg = lm.init_cache(cfg, 2, 32, device=cuda)
+        cc = lm.init_cache(cfg32, 2, 32, device="cpu")
+        for i in range(20):
+            lg, cg = lm.decode_step(gpu, cfg, toks[:, i:i + 1], ctrl, cg, i,
+                                    slice_mode=slice_mode)
+            lc, cc = lm.decode_step(cpu, cfg32, toks[:, i:i + 1], ctrl, cc, i)
+            _close_rel(lg, lc)
 
 
 def _close_rel(got, want):

@@ -2,9 +2,13 @@
 """Times the port's ``decode_attention`` on one CUDA device, for one
 checkout of the port, so that two commits compare in one call on one card:
 
-    python tools/decode_bench.py [--src DIR] [--plans] [--trace]
+    python tools/decode_bench.py [--src DIR] [--head-dim D] [--heads Q,KV]
+                                 [--plans] [--trace]
 
-At qwen2-1.5b's heads (12 query over 2 kv heads, head_dim 128), B = 8
+At qwen2-1.5b's heads (12 query over 2 kv heads, head_dim 128; with
+``--head-dim 80`` stablelm-3b's 32 over 32, with ``--head-dim 120``
+h2o-danube-3-4b's 32 over 8; ``--heads 40,8`` with
+head_dim 128 takes qwen2.5-14b's), B = 8
 (``--batch``), caches of Smax = 16 (index 3, the trace's decode step),
 64, 128 and 256 (index Smax - 1) and 2048 (index 2047 and 1023), random
 bf16 inputs from a seeded generator: the kernel's device ms and device
@@ -42,6 +46,8 @@ import chip_smoke  # noqa: E402  (helpers only: it imports no kernel here)
 SHAPES = ((16, 3), (64, 63), (128, 127), (256, 255), (2048, 2047),
           (2048, 1023))
 OLD_SYMBOLS = ("decode_split_kernel", "decode_combine_kernel")
+# (query heads, kv heads) of a config with each head_dim
+HEADS = {80: (32, 32), 120: (32, 8), 128: (12, 2)}
 
 
 def _kernels_per_call(torch, fn, n: int = 3) -> int:
@@ -62,6 +68,11 @@ def main(argv=None) -> int:
     ap.add_argument("--plans", action="store_true")
     ap.add_argument("--trace", action="store_true")
     ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--head-dim", type=int, default=128,
+                    choices=sorted(HEADS))
+    ap.add_argument("--heads", default=None,
+                    help="query,kv heads (default: those of --head-dim's "
+                         "config)")
     ap.add_argument("--shapes", default=None,
                     help="Smax:index pairs, comma-separated (default: "
                          + ",".join(f"{s}:{i}" for s, i in SHAPES) + ")")
@@ -77,7 +88,9 @@ def main(argv=None) -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels import decode_attention as da
     card = chip_smoke.Card(torch)
-    B, Hq, Hkv, hd = args.batch, 12, 2, 128
+    hd = args.head_dim
+    B, (Hq, Hkv) = args.batch, (HEADS[hd] if args.heads is None else
+                   tuple(map(int, args.heads.split(","))))
     G = Hq // Hkv
     gen = torch.Generator(device="cuda").manual_seed(0)
 
@@ -85,7 +98,8 @@ def main(argv=None) -> int:
         return torch.randn(shape, generator=gen, device="cuda").bfloat16()
 
     out = {"src": str(Path(da.__file__).resolve().parents[2]),
-           "device": torch.cuda.get_device_name(0), "batch": B}
+           "device": torch.cuda.get_device_name(0), "batch": B,
+           "heads": [Hq, Hkv, hd]}
     q = randn(B, Hq, 1, hd)
     for Smax, index in shapes:
         kc, vc = randn(B, Hkv, Smax, hd), randn(B, Hkv, Smax, hd)
@@ -93,8 +107,7 @@ def main(argv=None) -> int:
         idx = torch.full((), index, dtype=torch.int32, device="cuda")
         mask = (torch.arange(Smax, device="cuda") <= index)[None, None, None]
         live = index + 1
-        bound, by = card.bound(2 * (2 * q.numel() + 2 * B * Hkv * live * hd),
-                               4 * hd * live * B * Hq)
+        bound, by = chip_smoke.decode_bound(card, B, Hq, Hkv, live, hd)
 
         def run():
             return da.decode_attention(q, kc, vc, idx)

@@ -41,8 +41,13 @@ Phases, one result line each:
    ``csrc/hopper.cuh`` (on a card with the recorded SM count). Both
    attention kernels also run at the heads of the other configs
    (``CONFIG_HEADS``: head_dim 80 under MHA, 120 with G = 4, 128 with
-   G = 5): the same case checks, and device ms beside SDPA and the bound
-   counted at the real head_dim.
+   G = 5 and G = 4): the same case checks, and device ms beside SDPA and
+   the bound counted at the real head_dim. ``sliced_matmul`` over a stack
+   of experts (``EXPERT_STACKS``: mixtral's 8 experts of 4096 x 14336 at
+   C = 8 and 40 rows, llama4's 128 of 5120 x 8192 at C = 8; up and down
+   at each width): against the plain version, zeros past active_out,
+   bitwise repeats, one device kernel a call, device ms beside
+   ``torch.bmm`` on the active block and the bound.
 3. Serve: ``repro_torch.launch.serve`` at the full width and depth of
    qwen2-1.5b (random weights from a seeded ``torch.Generator``), SlackFit
    through the port's Router; every query must be answered, the serve
@@ -72,6 +77,16 @@ Phases, one result line each:
    decode step at B = 8, the 2-layer reference in both modes, and for
    h2o-danube-3-4b a prefill past its 4096-token window and decode steps
    that wrap the rolling cache, against the plain path on the CPU.
+9. MoE: mixtral-8x7b (16 of its 32 layers) and llama4-maverick (1 of
+   its 24 units) at their published widths, in turn, as phase 8 runs a
+   dense config: serve 32 queries in mask and in switch mode (the grouped
+   ``sliced_matmul`` launched in switch mode), switch against mask and
+   both against the fp32 oracle, whose MoE blocks route as the walk they
+   check did and count the tokens their own top-k would send elsewhere
+   (each a near-tie within bf16's reach), each block against its switch
+   twin, the trace with a MoE layer's dispatch kernels and the step's
+   bytes bound, and for mixtral the 2-layer reference, its CPU walk
+   routed as the card's.
 
 Each phase prints its seconds. Then one JSON line with every kernel's
 numbers (the attention kernels' also at each head_dim of phase 8), and
@@ -155,6 +170,26 @@ def device_ms(torch, fn, n: int = 20):
         if us > 0 and max(names.values()) >= n:
             return us / n / 1e3
     return "not measured"
+
+
+def device_kernels(torch, fn, n: int = 3):
+    """The names of the device kernels that ``n`` calls of ``fn`` run, from
+    torch.profiler. A trace that holds fewer device events than calls lost
+    events (as :func:`device_ms` finds now and then; it cannot hide an
+    extra kernel) and is taken again, up to three times."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        names = [ev.name for ev in prof.events()
+                 if ev.device_type == torch.autograd.DeviceType.CUDA]
+        if len(names) >= n:
+            return names
+    return names
 
 
 _NORM_TYPES = {"13__nv_bfloat16": "bf16", "6__half": "f16", "f": "f32"}
@@ -303,6 +338,7 @@ def phase_kernels(torch, card):
                   max_abs_err=max(errs), cases=len(errs))
         for key, heads in CONFIG_HEADS.items()}
     results["sliced_matmul"] = _sliced_cases(torch, card, randn)
+    results["sliced_matmul"]["experts"] = _grouped_cases(torch, card, randn)
     return results
 
 
@@ -310,7 +346,8 @@ def phase_kernels(torch, card):
 # heads), keyed as the kernels line reports them
 CONFIG_HEADS = {"80": (80, 32, 32),         # stablelm-3b, MHA
                 "120": (120, 32, 8),        # h2o-danube-3-4b, G = 4
-                "128-G5": (128, 40, 8)}     # qwen2.5-14b, G = 5
+                "128-G5": (128, 40, 8),     # qwen2.5-14b, llama4, G = 5
+                "128-G4": (128, 32, 8)}     # mixtral-8x7b, G = 4
 
 
 def flash_bound(card, B: int, Hq: int, Hkv: int, S: int, hd: int):
@@ -550,7 +587,6 @@ def _decode_rows(torch, card, randn, heads, key, shapes):
     Returns the Smax = 256 row with the others under ``smax<Smax>`` (and
     ``_index<index>`` for a second index)."""
     import torch.nn.functional as F
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import decode_attention as da
     dev = "cuda"
     hd, Hq, Hkv = heads
@@ -571,14 +607,7 @@ def _decode_rows(torch, card, randn, heads, key, shapes):
         def run():
             return da.decode_attention(q, kc, vc, idx)
         # one device kernel a call, and no allocation but the output
-        run()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(3):
-                run()
-            torch.cuda.synchronize()
-        names = [ev.name for ev in prof.events()
-                 if ev.device_type == torch.autograd.DeviceType.CUDA]
+        names = device_kernels(torch, run)
         if len(names) != 3 or not all("decode_attention_kernel" in n
                                        for n in names):
             fail(f"decode_attention Smax={Smax}: not one kernel a call: "
@@ -773,6 +802,84 @@ def _sliced_cases(torch, card, randn):
             same if digest["sms"] == SLICED_DIGEST["sms"]
             else "not compared: another SM count"))
     return dict(headline, max_abs_err=max(errs), cases=len(errs))
+
+
+# the expert stacks of MoE switch mode: (config, E, d, f, capacities)
+# with C = 8 at a decode step of B = 8 (the least capacity) and C = 40 at
+# a mixtral prefill of B = 8, S = 16 (8 * 16 * 2 * 1.25 / 8)
+EXPERT_STACKS = (("mixtral-8x7b", 8, 4096, 14336, (8, 40)),
+                 ("llama4-maverick-400b-a17b", 128, 5120, 8192, (8,)))
+
+
+def _grouped_cases(torch, card, randn):
+    """``sliced_matmul`` over a stack of experts (x (E, C, K), w (E, K, N),
+    one launch for all experts) at the expert shapes of mixtral-8x7b and
+    llama4-maverick, for the up (gate) product (K = d, N = f, active_out =
+    the width) and the down product (K = f, N = d, active_in = the width)
+    at each ``moe_ffn`` width. Each case: against the plain version
+    (BF16_TOL), columns past active_out exactly 0, two launches bitwise
+    equal, one device kernel a call; device ms against ``torch.bmm`` on
+    the active block and against the bound (bytes: the active weight
+    block, x and y once). Returns the rows keyed by case."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import subnet as sn
+    from repro_torch.kernels import sliced_matmul as sm
+    dev = "cuda"
+    rows = {}
+    for name, E, d, f, caps in EXPERT_STACKS:
+        widths = sn.width_options(get_config(name))["moe_ffn"]
+        for kind, K, N in (("up", d, f), ("down", f, d)):
+            w = randn(E, K, N)
+            for C, width in itertools.product(caps, widths):
+                label = f"{name} {kind} C={C} width={width}"
+                x = randn(E, C, K)
+                wid = torch.full((), width, dtype=torch.int32, device=dev)
+                ai, ao = (None, wid) if kind == "up" else (wid, None)
+                kin, kout = (K, width) if kind == "up" else (width, N)
+
+                def call():
+                    return sm.sliced_matmul(x, w, ai, ao)
+                got = call()
+                err = _compare(torch, f"sliced_matmul experts {label}", got,
+                               sm.sliced_matmul_plain(x, w, ai, ao))
+                if kind == "up" and got[..., width:].any():
+                    fail(f"sliced_matmul experts {label}: nonzero columns "
+                         f"past active_out")
+                if not torch.equal(got, call()):
+                    fail(f"sliced_matmul experts {label}: two launches gave "
+                         f"different bits")
+                names = device_kernels(torch, call, n=1)
+                if len(names) != 1 or "sliced_matmul_kernel" not in names[0]:
+                    fail(f"sliced_matmul experts {label}: device kernels "
+                         f"{names} a call, not one")
+                plan = sm.split_plan(C, N, K, 1, None if ai is None else width,
+                                     None if ao is None else width,
+                                     sm.grid_size(x.device), E)
+                bound, by = card.bound(2 * E * (C * kin + kin * kout + C * N),
+                                       2 * E * C * kin * kout)
+
+                def library():
+                    return torch.bmm(x[:, :, :kin], w[:, :kin, :kout])
+                row = dict(
+                    shape=[E, C, K, N], width=width, max_abs_err=err,
+                    tile=[plan.bm, sm.BN], live_tiles=plan.live_tiles,
+                    splits=plan.splits, ms=time_ms(torch, call, iters=20),
+                    plain_ms=time_ms(torch, lambda: sm.sliced_matmul_plain(
+                        x, w, ai, ao), iters=3, warmup=1),
+                    library_ms=time_ms(torch, library, iters=20),
+                    bound_ms=bound, bound_by=by,
+                    device_ms=device_ms(torch, call, n=10),
+                    library_device_ms=device_ms(torch, library, n=10),
+                    host_us=host_us(torch, call, n=20))
+                row["bound_share"] = (bound / row["device_ms"]
+                                      if isinstance(row["device_ms"], float)
+                                      else "not measured")
+                say("kernel-case", name="sliced_matmul", case=label, **row)
+                rows[label] = row
+                del x, got
+            del w
+            torch.cuda.empty_cache()
+    return rows
 
 
 # --------------------------------------------------------------------------
@@ -1029,14 +1136,14 @@ def trace_steps(torch, steps, symbols=PORT_KERNEL_SYMBOLS, n: int = 10):
 
 
 def two_layer_cut(torch, name: str, seed: int):
-    """The full-width ``name`` cut to 2 layers: (cfg, bf16 parameters on
-    the card from a seeded generator, the fp32 config, the same parameters
-    in fp32 on the CPU)."""
+    """The full-width ``name`` cut to 2 repeat units of its pattern: (cfg,
+    bf16 parameters on the card from a seeded generator, the fp32 config,
+    the same parameters in fp32 on the CPU)."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import Stage
     from repro_torch.models import lm
     cfg = get_config(name)
-    cfg = cfg.replace(stages=(Stage(("attn", "mlp"), repeat=2),))
+    cfg = cfg.replace(stages=(Stage(cfg.stages[0].pattern, repeat=2),))
     gpu = lm.init_model(cfg, torch.Generator(device="cuda").manual_seed(seed),
                         "cuda")
 
@@ -1054,8 +1161,10 @@ def reference_check(torch, cut, tag: str = "reference"):
     """Kernels (bf16, card) against the plain path (fp32, CPU) on a
     2-layer ``cut`` (:func:`two_layer_cut`): prefill logits (B=2, S=16) and
     4 decode steps, for the first and the last Pareto subnet, in mask and
-    in switch mode, within 2e-2 of max |logit|. Returns the worst relative
-    error of each mode."""
+    in switch mode, within 2e-2 of max |logit|. A MoE block of the CPU
+    walk routes as the card's walk did (:class:`Routes`), and the tokens
+    whose own top-k differs are held to :func:`route_flips`. Returns the
+    worst relative error of each mode and the routing flips."""
     import numpy as np
     from repro_torch.core import subnet as sn
     from repro_torch.core.pareto import pareto_subnets
@@ -1066,13 +1175,25 @@ def reference_check(torch, cut, tag: str = "reference"):
     toks = rng.integers(0, cfg.vocab_size, (2, 16)).astype(np.int32)
     pts = pareto_subnets(cfg)
     worst = {"mask": 0.0, "switch": 0.0}
+    flips = []
+
+    def both(on_card, on_cpu):
+        """The card's walk, then the CPU's routed as the card's was."""
+        with Routes() as rec:
+            got = on_card()
+        with Routes(replay=rec.calls) as rep:
+            want = on_cpu()
+        flips.extend(rep.flips)
+        return got, want
+
     with torch.no_grad():
         for mode, p in itertools.product(worst, (pts[0], pts[-1])):
             ctrl = sn.make_control(cfg, p.sub)
-            got = lm.forward(gpu, cfg, {"tokens": toks}, ctrl,
-                             slice_mode=mode).float().cpu()
-            want = lm.forward(cpu, cfg32, {"tokens": toks}, ctrl,
-                              slice_mode=mode)
+            got, want = both(
+                lambda: lm.forward(gpu, cfg, {"tokens": toks}, ctrl,
+                                   slice_mode=mode).float().cpu(),
+                lambda: lm.forward(cpu, cfg32, {"tokens": toks}, ctrl,
+                                   slice_mode=mode))
             scale = want.abs().max().item()
             err = (got - want).abs().max().item() / scale
             worst[mode] = max(worst[mode], err)
@@ -1083,17 +1204,18 @@ def reference_check(torch, cut, tag: str = "reference"):
             cc = lm.init_cache(cfg32, 2, 16, device="cpu")
             for i in range(4):
                 tk = toks[:, i:i + 1]
-                lg, cg = lm.decode_step(gpu, cfg, tk, ctrl, cg, i,
-                                        slice_mode=mode)
-                lc, cc = lm.decode_step(cpu, cfg32, tk, ctrl, cc, i,
-                                        slice_mode=mode)
+                (lg, cg), (lc, cc) = both(
+                    lambda: lm.decode_step(gpu, cfg, tk, ctrl, cg, i,
+                                           slice_mode=mode),
+                    lambda: lm.decode_step(cpu, cfg32, tk, ctrl, cc, i,
+                                           slice_mode=mode))
                 lg = lg.float().cpu()
                 scale = lc.abs().max().item()
                 err = (lg - lc).abs().max().item() / scale
                 worst[mode] = max(worst[mode], err)
                 if not torch.allclose(lg, lc, atol=2e-2 * scale, rtol=2e-2):
                     fail(f"{tag} {mode}: decode step {i} off by {err}")
-    return worst
+    return dict(worst, routing=flip_summary(flips))
 
 
 def phase_reference(torch):
@@ -1109,10 +1231,14 @@ def phase_reference(torch):
 
 
 # --------------------------------------------------------------------------
-# phase 8: the other dense configurations
+# phase 8: the other dense configurations; phase 9: the MoE family
 # --------------------------------------------------------------------------
 
 CONFIGS = ("stablelm-3b", "h2o-danube-3-4b", "qwen2.5-14b")
+# (config, repeat units on the card): mixtral's 32 layers hold 93 GB of
+# bf16 weights, 16 hold 47; one of llama4's 24 units (attn, moe, attn,
+# mlp) holds 37 GB, 32 of them its 128 experts
+MOE_CONFIGS = (("mixtral-8x7b", 16), ("llama4-maverick-400b-a17b", 1))
 
 
 def rel_err(got, want, what, tol: float = 2e-2) -> float:
@@ -1127,16 +1253,38 @@ def rel_err(got, want, what, tol: float = 2e-2) -> float:
     return err
 
 
-def phase_configs(torch):
+def phase_configs(torch, card):
     """Phase 8: each of CONFIGS in turn at full width and depth, random
     weights from a seeded generator, each model freed before the next.
     Returns the kernel launches of each driven path."""
     launches = []
     for name in CONFIGS:
         t0 = time.perf_counter()
-        launches += config_run(torch, name)
+        launches += config_run(torch, card, name)
         say("config-seconds", arch=name, seconds=time.perf_counter() - t0)
     return launches
+
+
+def phase_moe(torch, card):
+    """Phase 9: each of MOE_CONFIGS at its published widths and the depth
+    that fits the card, as phase 8 runs a dense config; mixtral's 2-layer
+    reference on the CPU (llama4's one unit would need 74 GB of fp32 on
+    the host: the fp32 oracle stands in). Returns the kernel launches of
+    each driven path."""
+    launches = []
+    for name, units in MOE_CONFIGS:
+        t0 = time.perf_counter()
+        launches += config_run(torch, card, name, units=units,
+                               reference=name == "mixtral-8x7b")
+        say("config-seconds", arch=name, seconds=time.perf_counter() - t0)
+    return launches
+
+
+def stage_peak_gb(torch) -> float:
+    """The most device memory tensors held since the last call (GB)."""
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    return peak
 
 
 def _free(torch):
@@ -1145,31 +1293,40 @@ def _free(torch):
     torch.cuda.empty_cache()
 
 
-def config_run(torch, name: str):
-    """(a) serve 32 queries with SlackFit in mask and in switch mode:
-    every query answered, no build, flash, the norm (an RMSNorm config)
-    and in switch mode ``sliced_matmul`` launched; (b) switch against mask
+def config_run(torch, card, name: str, units=None, reference: bool = True):
+    """(a) serve 32 queries with SlackFit in mask and in switch mode
+    (``--units`` when given): every query answered, no build, flash, the
+    norm (an RMSNorm config) and in switch mode ``sliced_matmul`` (for a
+    MoE config its grouped form too) launched; (b) switch against mask
     through the executor over the prefills (B=8, S=16) of every Pareto
     subnet and 8 greedy decode steps of the smallest and the largest,
-    each held against the fp32 oracle (:func:`fp32_oracle`): the switch
+    each held against the fp32 oracle (:func:`fp32_oracle`), which for a
+    MoE config routes as the walk it checks did (:class:`Routes`, the
+    tokens of its own other top-k held to :func:`route_flips`): the switch
     logits no further from it than the mask logits plus
     ``SWITCH_MARGIN``, decode and ``sliced_matmul`` launched; then every
     block of the same mask walks against its switch twin
     (:class:`BlockShadow`), the number of blocks compared checked; (e)
-    the trace of a warmed mask prefill and decode step at B=8; (c) the
-    2-layer reference in both modes; (d) for a config with a sliding
-    window, a prefill past the window and decode steps that wrap the
-    rolling cache against the plain path on the CPU. Returns the launches
-    of the two serve runs and of the executor's walks in (b)."""
+    the trace of a warmed mask prefill and decode step at B=8, with a MoE
+    layer's dispatch kernels and the step's bytes bound; (c) with
+    ``reference``, the 2-layer reference in both modes; (d) for a dense
+    config with a sliding window, a prefill past the window and decode
+    steps that wrap the rolling cache against the plain path on the CPU.
+    Returns the launches of the two serve runs and of the executor's walks
+    in (b)."""
     import numpy as np
     from repro_torch import compat
     from repro_torch.configs import get_config
+    from repro_torch.core import subnet as sn
+    from repro_torch.core.pareto import ParetoPoint
     from repro_torch.launch import serve
     from repro_torch.models import lm
     from repro_torch.serving.executor import ExecutorConfig, SubnetExecutor
-    cfg = get_config(name)
+    cfg = serve.cut_units(get_config(name), units)
     rms = cfg.norm == "rmsnorm"
-    secs = {}
+    moe = cfg.family == "moe"
+    depth = ["--units", str(units)] if units else []
+    secs, peak_gb = {}, {}
     torch.cuda.reset_peak_memory_stats()
 
     # (a) serve, mask mode and switch mode
@@ -1178,13 +1335,16 @@ def config_run(torch, name: str):
         t0 = time.perf_counter()
         compat.reset_launch_counts()
         out = serve.run(["--execute", "real", "--arch", name, "--queries",
-                         "32", "--seq-len", "16", "--slice-mode", mode])
+                         "32", "--seq-len", "16", "--slice-mode", mode]
+                        + depth)
         serve_launches.append(compat.launch_counts())
         _free(torch)
         secs[f"serve_{mode}"] = time.perf_counter() - t0
-        if out["size"] != "full" or out["slice_mode"] != mode:
-            fail(f"{name}: serve did not run the full-width model in {mode} "
-                 f"mode")
+        peak_gb[f"serve_{mode}"] = stage_peak_gb(torch)
+        if out["size"] != "full" or out["slice_mode"] != mode \
+                or out["units"] != sum(s.repeat for s in cfg.stages):
+            fail(f"{name}: serve did not run the full-width model at "
+                 f"{units} units in {mode} mode")
         if out["queries"] < 1 or out["served"] != out["queries"]:
             fail(f"{name} {mode}: served {out['served']} of "
                  f"{out['queries']} queries")
@@ -1193,14 +1353,15 @@ def config_run(torch, name: str):
                  f"{out['serve_phase_builds']} kernels")
         for kernel in ("flash_attention",) \
                 + (("subnet_rmsnorm",) if rms else ()) \
-                + (("sliced_matmul",) if mode == "switch" else ()):
+                + (("sliced_matmul",) if mode == "switch" else ()) \
+                + ((GROUPED,) if mode == "switch" and moe else ()):
             if out["kernel_launches"].get(kernel, 0) <= 0:
                 fail(f"{name}: {kernel} never launched while serving in "
                      f"{mode} mode")
         served[mode] = out
 
     # (b) switch against mask through the executor over one parameter
-    # tree, both against the fp32 oracle; then each block on its own
+    # tree, each against the fp32 oracle; then each block on its own
     t0 = time.perf_counter()
     params = lm.init_model(cfg, torch.Generator(device="cuda").manual_seed(4),
                            "cuda")
@@ -1212,59 +1373,93 @@ def config_run(torch, name: str):
     ends = (0, mask.n_subnets - 1)
     toks = np.random.default_rng(5).integers(
         0, cfg.vocab_size, (B, S)).astype(np.int32)
+
+    # built before the walks, so that the routing records hold the walks'
+    # dispatches only, not those of an entry's first run
+    mask.warmup(batches=(B,), seqs=(S, 32), decode=True)
+    switch.warmup(batches=(B,), seqs=(S, 32), decode=True)
+
+    def walk(fn, *args):
+        """fn's result and the routing of its MoE blocks."""
+        with Routes() as rec:
+            out = fn(*args)
+        return out, rec.calls
+
     compat.reset_launch_counts()
-    masked = [mask.prefill(i, toks) for i in range(mask.n_subnets)]
-    switched = [switch.prefill(i, toks) for i in range(mask.n_subnets)]
+    masked = [walk(mask.prefill, i, toks) for i in range(mask.n_subnets)]
+    switched = [walk(switch.prefill, i, toks) for i in range(mask.n_subnets)]
     decoded = {}
     for i in ends:
         cs, cm = switch.init_cache(B, 32), mask.init_cache(B, 32)
         seq, got_m, got_s = [toks[:, :1]], [], []
         for j in range(steps):
-            got, cs = switch.decode_step(i, seq[-1], cs, j)
-            want, cm = mask.decode_step(i, seq[-1], cm, j)
-            got_s.append(got)
-            got_m.append(want)
+            (got, cs), rs = walk(switch.decode_step, i, seq[-1], cs, j)
+            (want, cm), rm = walk(mask.decode_step, i, seq[-1], cm, j)
+            got_s.append((got, rs))
+            got_m.append((want, rm))
             seq.append(want.argmax(-1).astype(np.int32)[:, None])
         decoded[i] = (np.concatenate(seq[:steps], 1), got_m, got_s)
     parity_launches = compat.launch_counts()
     for kernel in ("flash_attention", "decode_attention", "sliced_matmul") \
-            + (("subnet_rmsnorm",) if rms else ()):
+            + (("subnet_rmsnorm",) if rms else ()) + ((GROUPED,) if moe else ()):
         if parity_launches.get(kernel, 0) <= 0:
             fail(f"{name}: {kernel} never launched in switch against mask")
-    oracle = [fp32_oracle(torch, params, cfg, toks, c)[:, -1]
-              for c in mask.ctrls]
-    logits = {
-        key: [rel_err(a, b, f"{name} prefill subnet {i} {key}",
-                      tol=float("inf"))
-              for i, (a, b) in enumerate(zip(got, want))]
-        for key, got, want in (("switch_vs_mask", switched, masked),
-                               ("mask_vs_fp32", masked, oracle),
-                               ("switch_vs_fp32", switched, oracle))}
-    for i, (sw, mk) in enumerate(zip(logits["switch_vs_fp32"],
-                                     logits["mask_vs_fp32"])):
-        if not sw <= mk + SWITCH_MARGIN:
-            fail(f"{name}: switch prefill of subnet {i} is {sw} of max|logit| "
-                 f"off the fp32 oracle, mask {mk}")
+    flips = []
+
+    def oracle(tokens, ctrl, routes):
+        return fp32_oracle(torch, params, cfg, tokens, ctrl, routes, flips)
+
+    logits = {"switch_vs_mask": [], "mask_vs_fp32": [], "switch_vs_fp32": []}
+    for i, ((mk, mr), (sw, sr)) in enumerate(zip(masked, switched)):
+        ctrl = mask.ctrls[i]
+        ref_m = oracle(toks, ctrl, mr)[:, -1]
+        ref_s = oracle(toks, ctrl, sr)[:, -1] if moe else ref_m
+        errs = {key: rel_err(a, b, f"{name} prefill subnet {i} {key}",
+                             tol=float("inf"))
+                for key, a, b in (("switch_vs_mask", sw, mk),
+                                  ("mask_vs_fp32", mk, ref_m),
+                                  ("switch_vs_fp32", sw, ref_s))}
+        for key, e in errs.items():
+            logits[key].append(e)
+        if not moe and not errs["switch_vs_fp32"] <= errs["mask_vs_fp32"] \
+                + SWITCH_MARGIN:
+            fail(f"{name}: switch prefill of subnet {i} is "
+                 f"{errs['switch_vs_fp32']} of max|logit| off the fp32 "
+                 f"oracle, mask {errs['mask_vs_fp32']}")
     decode_errs = {"switch_vs_mask": [], "mask_vs_fp32": [],
                    "switch_vs_fp32": []}
     for i in ends:
         seq, got_m, got_s = decoded[i]
-        ref = fp32_oracle(torch, params, cfg, seq, mask.ctrls[i])
+        ref_m = oracle(seq, mask.ctrls[i],
+                       decode_routes(torch, [r for _, r in got_m]))
+        ref_s = oracle(seq, mask.ctrls[i],
+                       decode_routes(torch, [r for _, r in got_s])) \
+            if moe else ref_m
         for j in range(steps):
             errs = {key: rel_err(a, b, f"{name} decode {i} step {j} {key}",
                                  tol=float("inf"))
-                    for key, a, b in (("switch_vs_mask", got_s[j], got_m[j]),
-                                      ("mask_vs_fp32", got_m[j], ref[:, j]),
-                                      ("switch_vs_fp32", got_s[j],
-                                       ref[:, j]))}
+                    for key, a, b in (
+                        ("switch_vs_mask", got_s[j][0], got_m[j][0]),
+                        ("mask_vs_fp32", got_m[j][0], ref_m[:, j]),
+                        ("switch_vs_fp32", got_s[j][0], ref_s[:, j]))}
             for key, e in errs.items():
                 decode_errs[key].append(e)
-            if not errs["switch_vs_fp32"] <= errs["mask_vs_fp32"] \
-                    + SWITCH_MARGIN:
+            if not moe and not errs["switch_vs_fp32"] \
+                    <= errs["mask_vs_fp32"] + SWITCH_MARGIN:
                 fail(f"{name}: switch decode {i} step {j} is "
                      f"{errs['switch_vs_fp32']} of max|logit| off the fp32 "
                      f"oracle, mask {errs['mask_vs_fp32']}")
-    del oracle, ref
+    # a MoE walk at these widths strays from the oracle by bf16 noise
+    # whose difference between the modes, walk by walk, has a std of about
+    # 0.004 (PERF.md, PR 20): there the means over every walk are held
+    gaps = [a - b for d in (logits, decode_errs)
+            for a, b in zip(d["switch_vs_fp32"], d["mask_vs_fp32"])]
+    if moe and not sum(gaps) / len(gaps) <= SWITCH_MARGIN:
+        fail(f"{name}: the switch walks are {sum(gaps) / len(gaps)} of "
+             f"max|logit| further from the fp32 oracle than the mask walks, "
+             f"on average over {len(gaps)}")
+    seqs = {i: decoded[i][0] for i in ends}
+    del masked, switched, decoded, ref_m, ref_s
     # the same mask walks again, each block against its switch twin; the
     # launches of this pass belong to no served path and are not counted
     with BlockShadow(name) as shadow:
@@ -1273,12 +1468,14 @@ def config_run(torch, name: str):
         for i in ends:
             cm = mask.init_cache(B, 32)
             for j in range(steps):
-                _, cm = mask.decode_step(i, decoded[i][0][:, j:j + 1], cm, j)
+                _, cm = mask.decode_step(i, seqs[i][:, j:j + 1], cm, j)
     want_blocks = shadow_blocks(cfg, mask.ctrls, ends, steps)
+    n_sub = mask.n_subnets
     if shadow.blocks != want_blocks:
         fail(f"{name}: {shadow.blocks} blocks compared to their switch twins, "
              f"not {want_blocks}")
     secs["switch"] = time.perf_counter() - t0
+    peak_gb["switch"] = stage_peak_gb(torch)
     t0 = time.perf_counter()
     mask.warmup(batches=(8,), seqs=(16,), decode=True)
     idx, tt = mask.n_subnets - 1, np.ones((8, 16), np.int32)
@@ -1286,45 +1483,79 @@ def config_run(torch, name: str):
     trace = trace_steps(torch, {
         "prefill": lambda: mask.prefill(idx, tt),
         "decode": lambda: mask.decode_step(idx, tt[:, :1], cache, 3)})
+    # the bytes bound of a step of the largest subnet: every weight of the
+    # walk and the head read once (mask mode reads every expert), the
+    # embedding's rows and the activations left out
+    step_bytes = lm.param_bytes(cfg) - cfg.vocab_size * cfg.d_model * 2
+    for kind in trace:
+        trace[kind]["bytes_bound_ms"] = step_bytes / card.bw * 1e3
+    if moe:
+        trace["moe_dispatch"] = dispatch_trace(torch, mask, idx, tt)
+        # switch mode over the same weights: the widest subnet and the one
+        # at full depth and heads with half the FFN width, whose grouped
+        # products read half the expert bytes
+        k = max(cfg.elastic.topk_options or (cfg.top_k,))
+        half = next(sub for sub in sn.enumerate_space(cfg)
+                    if sub.key() == (1.0, 0.5, 1.0, k))
+        sw = SubnetExecutor(params, cfg,
+                            points=[ParetoPoint(sub, 0.0, 0.0, 0.0)
+                                    for sub in (sn.max_subnet(cfg), half)],
+                            exec_cfg=ExecutorConfig(slice_mode="switch"))
+        sw.warmup(batches=(8,), seqs=(16,))
+        trace.update(trace_steps(torch, {
+            "switch_prefill_widest": lambda: sw.prefill(0, tt),
+            "switch_prefill_half_ffn": lambda: sw.prefill(1, tt)}))
+        del sw
     secs["trace"] = time.perf_counter() - t0
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    peak_gb["trace"] = stage_peak_gb(torch)
     del mask, switch, params, cache, cm
     _free(torch)
 
     # (c) the 2-layer reference, and (d) the window past its end
-    t0 = time.perf_counter()
-    cut = two_layer_cut(torch, name, seed=2)
-    worst = reference_check(torch, cut, tag=f"{name} reference")
-    secs["reference"] = time.perf_counter() - t0
-    window = None
-    if cfg.sliding_window:
+    worst, window = {}, None
+    if reference:
         t0 = time.perf_counter()
-        window = window_check(torch, cut)
-        secs["window"] = time.perf_counter() - t0
-    del cut
-    _free(torch)
+        cut = two_layer_cut(torch, name, seed=2)
+        worst = reference_check(torch, cut, tag=f"{name} reference")
+        secs["reference"] = time.perf_counter() - t0
+        peak_gb["reference"] = stage_peak_gb(torch)
+        if cfg.sliding_window and not moe:
+            t0 = time.perf_counter()
+            window = window_check(torch, cut)
+            secs["window"] = time.perf_counter() - t0
+        del cut
+        _free(torch)
     serve_keys = ("queries", "served", "slo_attainment", "p50_latency_ms",
                   "p99_latency_ms", "rate_qps", "slo_ms", "lat_fast_ms",
                   "lat_slow_ms", "init_seconds", "serve_phase_builds",
                   "kernel_launches")
     say("config", arch=name, layers=sum(s.repeat for s in cfg.stages),
-        d_model=cfg.d_model, heads=[cfg.n_heads, cfg.n_kv_heads],
+        units=units, d_model=cfg.d_model, heads=[cfg.n_heads, cfg.n_kv_heads],
         head_dim=cfg.resolved_head_dim, d_ff=cfg.d_ff, vocab=cfg.vocab_size,
         norm=cfg.norm, window=cfg.sliding_window, parameters=n_params,
+        experts=[cfg.n_experts, cfg.top_k, cfg.resolved_moe_d_ff] if moe
+        else None,
         peak_device_gb=peak_gb,
+        left_allocated_gb=torch.cuda.memory_allocated() / 1e9,
         serve={mode: {k: out[k] for k in serve_keys}
                for mode, out in served.items()},
-        subnets=len(masked), switch_margin=SWITCH_MARGIN,
+        subnets=n_sub, switch_margin=SWITCH_MARGIN,
         prefill_logits_rel_errs=logits,
         prefill_logits_max_rel_err={k: max(v) for k, v in logits.items()},
         decode_logits_max_rel_err={k: max(v) for k, v in decode_errs.items()},
+        switch_minus_mask_vs_fp32=dict(mean=sum(gaps) / len(gaps),
+                                       max=max(gaps), min=min(gaps),
+                                       walks=len(gaps)),
+        oracle_routing=flip_summary(flips) if moe else None,
         blocks_compared=shadow.blocks,
         switch_block_max_rel_err=shadow.worst,
+        switch_block_max_rel_err_by_kind=shadow.worst_by_kind,
         block_tol="2e-2 of max|block output|",
         parity_launches=parity_launches,
-        reference_max_rel_err=worst["mask"],
-        reference_switch_max_rel_err=worst["switch"], window_check=window,
-        seconds=secs, trace=trace)
+        reference_max_rel_err=worst.get("mask"),
+        reference_switch_max_rel_err=worst.get("switch"),
+        reference_routing=worst.get("routing") if moe else None,
+        window_check=window, seconds=secs, trace=trace)
     return serve_launches + [parity_launches]
 
 
@@ -1333,13 +1564,15 @@ def config_run(torch, name: str):
 # two modes round differently in bf16 and both stray about 0.02 from the
 # oracle at depth 24-48, but within 0.003 of each other's distance to it
 SWITCH_MARGIN = 0.005
+# the grouped sliced_matmul's launch count (kernels/sliced_matmul.py)
+GROUPED = "sliced_matmul.experts"
 
 
 def shadow_blocks(cfg, ctrls, ends, steps: int) -> int:
     """The blocks that :class:`BlockShadow` compares over the mask-mode
     prefill of every control in ``ctrls`` and ``steps`` decode steps of
-    the subnets ``ends``: every live attention and MLP block of a
-    prefill, every live MLP block of a decode step."""
+    the subnets ``ends``: every live attention, MLP and MoE block of a
+    prefill, every live MLP and MoE block of a decode step."""
     import numpy as np
 
     def live(ctrl, kinds):
@@ -1350,28 +1583,32 @@ def shadow_blocks(cfg, ctrls, ends, steps: int) -> int:
             offset += stage.repeat
         return n
 
-    return (sum(live(c, ("attn", "mlp")) for c in ctrls)
-            + steps * sum(live(ctrls[i], ("mlp",)) for i in ends))
+    return (sum(live(c, ("attn", "mlp", "moe")) for c in ctrls)
+            + steps * sum(live(ctrls[i], ("mlp", "moe")) for i in ends))
 
 
 class BlockShadow:
-    """While active, every attention and MLP block that a mask-mode walk
-    runs also runs in switch mode on the same inputs (x, the pending
+    """While active, every attention, MLP and MoE block that a mask-mode
+    walk runs also runs in switch mode on the same inputs (x, the pending
     delta, the weights and the control), and the worst max |switch - mask|
     over max |mask| of a block's output is kept; past ``tol`` it fails.
     Each block is compared on its own, so the bf16 rounding differences of
-    the two modes do not compound over the depth. Decode has no switch
-    branch in attention, so there the MLP blocks compare."""
+    the two modes do not compound over the depth (and a MoE block's twin
+    routes its tokens as the block does: one norm, one fp32 router
+    product). Decode has no switch branch in attention, so there the MLP
+    and MoE blocks compare."""
 
     def __init__(self, name: str, tol: float = 2e-2):
         self.name, self.tol = name, tol
-        self.worst, self.blocks = 0.0, 0
+        self.worst, self.blocks, self.worst_by_kind = 0.0, 0, {}
 
     def __enter__(self):
         from repro_torch.models import attention as attn_mod
         from repro_torch.models import ffn as ffn_mod
-        self._orig = attn, mlp = (attn_mod.attention_block_pending,
-                                  ffn_mod.mlp_block_pending)
+        from repro_torch.models import moe as moe_mod
+        self._orig = attn, mlp, moe = (attn_mod.attention_block_pending,
+                                       ffn_mod.mlp_block_pending,
+                                       moe_mod.moe_block_pending)
 
         def attn_twin(p, cfg, x, delta, ctrl, positions, *,
                       slice_mode="mask", **kw):
@@ -1383,22 +1620,27 @@ class BlockShadow:
                                 slice_mode="switch", **kw)[1], y, "attention")
             return s, y
 
-        def mlp_twin(p, cfg, x, delta, ctrl, *, slice_mode="mask"):
-            s, y = mlp(p, cfg, x, delta, ctrl, slice_mode=slice_mode)
-            if slice_mode == "mask":
-                self._note(mlp(p, cfg, x, delta, ctrl,
-                               slice_mode="switch")[1], y, "mlp")
-            return s, y
+        def ffn_twin(block, kind):
+            def twin(p, cfg, x, delta, ctrl, *, slice_mode="mask", **kw):
+                s, y = block(p, cfg, x, delta, ctrl, slice_mode=slice_mode,
+                             **kw)
+                if slice_mode == "mask":
+                    self._note(block(p, cfg, x, delta, ctrl,
+                                     slice_mode="switch", **kw)[1], y, kind)
+                return s, y
+            return twin
 
         attn_mod.attention_block_pending = attn_twin
-        ffn_mod.mlp_block_pending = mlp_twin
+        ffn_mod.mlp_block_pending = ffn_twin(mlp, "mlp")
+        moe_mod.moe_block_pending = ffn_twin(moe, "moe")
         return self
 
     def __exit__(self, *exc):
         from repro_torch.models import attention as attn_mod
         from repro_torch.models import ffn as ffn_mod
-        attn_mod.attention_block_pending, ffn_mod.mlp_block_pending = \
-            self._orig
+        from repro_torch.models import moe as moe_mod
+        (attn_mod.attention_block_pending, ffn_mod.mlp_block_pending,
+         moe_mod.moe_block_pending) = self._orig
         return False
 
     def _note(self, got, want, kind):
@@ -1407,17 +1649,167 @@ class BlockShadow:
                / want.abs().max().clamp_min(1e-30)).item()
         self.blocks += 1
         self.worst = max(self.worst, err)
+        self.worst_by_kind[kind] = max(self.worst_by_kind.get(kind, 0.0), err)
         if not err <= self.tol:
             fail(f"{self.name}: switch {kind} block {self.blocks} off its "
                  f"mask twin by {err} of max|output|")
 
 
-def fp32_oracle(torch, params, cfg, toks, ctrl):
+class Routes:
+    """While active, each MoE dispatch of a walk is recorded, in walk
+    order: per token, its router input ``h``, its fp32 ``logits``, its
+    expert ids ``eids`` and which of its slots the capacity ``keep`` (on
+    the walk's device). Given ``replay``, the records of another walk of
+    the same model and tokens, each dispatch routes with the recorded
+    expert ids in place of its own top-k, and the tokens whose own live
+    experts differ go through :func:`route_flips` (``flips``). The walk's
+    code is untouched: the recorder wraps ``models.moe.dispatch``, and
+    ``moe_block_pending`` for the router the bound needs."""
+
+    def __init__(self, replay=None):
+        self.calls, self.flips = [], []
+        self._replay = None if replay is None else list(replay)
+        self._router = None
+
+    def __enter__(self):
+        from repro_torch.models import moe as moe_mod
+        self._orig = dispatch, block = (moe_mod.dispatch,
+                                        moe_mod.moe_block_pending)
+
+        def block_noting_router(p, *args, **kw):
+            self._router = p["router"]
+            return block(p, *args, **kw)
+
+        def recorded(h, logits, eids, topk, cfg, capacity):
+            G, N, k = eids.shape
+            if self._replay is not None:
+                walk = self._replay.pop(0)
+                self.flips.append(route_flips(
+                    logits.reshape(G * N, -1), h.reshape(G * N, -1).float(),
+                    self._router.float(), walk, int(topk)))
+                eids = walk["eids"].to(eids.device).reshape(G, N, k)
+            slots, meta = dispatch(h, logits, eids, topk, cfg, capacity)
+            keep = meta["keep"].new_zeros(meta["keep"].shape).scatter_(
+                1, meta["order"], meta["keep"])
+            self.calls.append(dict(h=h.reshape(G * N, -1),
+                                   logits=logits.reshape(G * N, -1),
+                                   eids=eids.reshape(G * N, k),
+                                   keep=keep.reshape(G * N, k)))
+            return slots, meta
+
+        moe_mod.dispatch = recorded
+        moe_mod.moe_block_pending = block_noting_router
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe as moe_mod
+        moe_mod.dispatch, moe_mod.moe_block_pending = self._orig
+        return False
+
+
+def decode_routes(torch, steps):
+    """The records of one walk's decode steps (a list per step, a record
+    per MoE layer of B tokens) as one record per layer over the (B, steps)
+    tokens in row order, the order of a forward over the sequence."""
+    out = []
+    for layer in zip(*steps):
+        out.append({k: torch.stack([r[k] for r in layer], 1).reshape(
+            -1, *layer[0][k].shape[1:]) for k in layer[0]})
+    return out
+
+
+def route_flips(logits, h, router, walk, k: int):
+    """The tokens of one MoE layer whose top ``k`` experts under
+    ``logits`` (this walk's fp32 router product of its router input ``h``)
+    are not the live experts of another walk (``walk``, a record of
+    :class:`Routes`), each with its margin, the k-th minus the (k+1)-th of
+    its logits, and the bound of the flips the other walk's error in the
+    router input explains: twice the largest change of a logit that
+    ``walk["h"] - h`` makes through the router (plus 1e-5 of the largest
+    sum_i |h_i router_ie| for the products' own fp32 rounding). A flip
+    past the bound fails: the router input's error does not explain it
+    (routing read from another token or layer, or not the top-k). Returns
+    (margin, bound, router-input relative error) of each."""
+    import torch
+    E = logits.shape[-1]
+    vals, own = torch.topk(logits, min(k + 1, E), dim=-1)
+    eids = walk["eids"].to(logits.device)
+    differ = (own[:, :k].sort(-1).values
+              != eids[:, :k].sort(-1).values).any(-1)
+    if not bool(differ.any()):
+        return []
+    margin = vals[:, k - 1] - vals[:, k]
+    dh = walk["h"].to(h.device).float() - h
+    bound = (2 * (dh @ router).abs().max(-1).values
+             + 1e-5 * (h.abs() @ router.abs()).max(-1).values)
+    rel_in = dh.norm(dim=-1) / h.norm(dim=-1)
+    out = list(zip(margin[differ].tolist(), bound[differ].tolist(),
+                   rel_in[differ].tolist()))
+    for m, b, _ in out:
+        if not m <= b:
+            fail(f"a routing flip at margin {m}, past the {b} that the "
+                 f"router input's error explains")
+    return out
+
+
+def flip_summary(flips):
+    """Count, widest margin, least headroom (bound minus margin) and the
+    largest router-input error of routing flips (lists of :func:`route_flips`
+    triples, one list per MoE layer and walk)."""
+    flat = [f for layer in flips for f in layer]
+    return dict(layers_checked=len(flips), flips=len(flat),
+                widest_margin=max((m for m, _, _ in flat), default=None),
+                least_headroom=min((b - m for m, b, _ in flat), default=None),
+                max_router_input_rel_err=max((e for _, _, e in flat),
+                                             default=None))
+
+
+def dispatch_trace(torch, ex, idx, toks):
+    """A MoE layer's dispatch apart from its expert products, on the
+    inputs of the first MoE layer of a warmed prefill: ``route``,
+    ``dispatch`` and ``combine`` (the slots standing in for the expert
+    outputs, the same shape), their device kernels and device ms."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import moe as moe_mod
+    cfg = ex.cfg
+    with Routes() as rec:
+        ex.prefill(idx, toks)
+    r = rec.calls[0]
+    h, logits = r["h"][None], r["logits"][None]
+    topk = ex.ctrls[idx]["topk"]
+    cap = moe_mod._capacity(h.shape[1], cfg)
+
+    def step():
+        slots, meta = moe_mod.dispatch(h, logits, moe_mod.route(logits, cfg),
+                                       topk, cfg, cap)
+        return moe_mod.combine(slots, meta, h.shape[1])
+
+    step()
+    torch.cuda.synchronize()
+    n = 10
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+    evs = [ev for ev in prof.events()
+           if ev.device_type == torch.autograd.DeviceType.CUDA]
+    us = 0.0
+    for ev in evs:
+        t = getattr(ev, "self_device_time_total", None)
+        us += ev.self_cuda_time_total if t is None else t
+    return dict(tokens=h.shape[1], capacity=cap,
+                device_kernels_per_layer=len(evs) / n,
+                device_ms_per_layer=us / n / 1e3 if us else "not measured")
+
+
+def fp32_oracle(torch, params, cfg, toks, ctrl, routes=(), flips=None):
     """The mask-mode logits of ``toks`` at every position in fp32 on the
     card: each layer's weights upcast as the walk reaches it (the bf16
     tree stays as it is), the plain attention, the norm kernel's fp32
-    form, fp32 cuBLAS products with TF32 off. A numpy (B, S, vocab)
-    array."""
+    form, fp32 cuBLAS products with TF32 off. A MoE block routes as the
+    records ``routes`` say (one per live MoE layer, in walk order; see
+    :func:`oracle_moe`) and adds its routing flips to ``flips``. A numpy
+    (B, S, vocab) array."""
     from repro_torch.core import operators as ops
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import attention as attn_mod
@@ -1431,6 +1823,7 @@ def fp32_oracle(torch, params, cfg, toks, ctrl):
     cfg32 = cfg.replace(dtype="float32")
     dev = params["embed"].device
     ctrl = ops.device_control(ctrl, dev)
+    routes = list(routes)
     with torch.no_grad():
         tokens = torch.as_tensor(toks, device=dev).long()
         B, S = tokens.shape
@@ -1441,8 +1834,14 @@ def fp32_oracle(torch, params, cfg, toks, ctrl):
                 if not ctrl["layer_gate"][offset + r]:
                     continue
                 for j, kind in enumerate(stage.pattern):
-                    p = {k: v[r].float()
-                         for k, v in sp[f"{j}:{kind}"].items()}
+                    slot = sp[f"{j}:{kind}"]
+                    if kind == "moe":
+                        pair = oracle_moe(torch, {k: v[r] for k, v in
+                                                  slot.items()},
+                                          cfg32, *pair, ctrl,
+                                          routes.pop(0), flips)
+                        continue
+                    p = {k: v[r].float() for k, v in slot.items()}
                     if kind == "attn":
                         pair = attn_mod.attention_block_pending(
                             p, cfg32, *pair, ctrl, positions,
@@ -1451,6 +1850,8 @@ def fp32_oracle(torch, params, cfg, toks, ctrl):
                         pair = ffn_mod.mlp_block_pending(p, cfg32, *pair,
                                                          ctrl)
             offset += stage.repeat
+        if routes:
+            fail(f"fp32 oracle: {len(routes)} MoE records left unused")
         x = pair[0] if pair[1] is None else pair[0] + pair[1]
         h = ops.subnet_norm(x.reshape(B * S, -1), params["final_gamma"],
                             ctrl["subnet_id"], eps=cfg.norm_eps,
@@ -1458,6 +1859,51 @@ def fp32_oracle(torch, params, cfg, toks, ctrl):
         w = params.get("head")
         w = params["embed"].T if w is None else w
         return (h @ w.float()).reshape(B, S, -1).cpu().numpy()
+
+
+def oracle_moe(torch, p, cfg32, x, delta, ctrl, walk, flips):
+    """A MoE block in fp32, mask mode, independent of ``models.moe``'s
+    dispatch: the tokens go to the experts ``walk`` (a record of
+    :class:`Routes`) gave them and keep the slots it kept, with gates from
+    this walk's own fp32 logits; one expert at a time is upcast and runs
+    the tokens it holds. The tokens whose own top-k differs go to
+    :func:`route_flips`. Returns the pair (x + delta, output)."""
+    import torch.nn.functional as F
+    from repro_torch.core import operators as ops
+    from repro_torch.models.common import pre_norm
+    small = {k: v.float() for k, v in p.items()
+             if k not in ("wg", "wu", "wd")}
+    s, h = pre_norm(small, cfg32, x, delta, ctrl)
+    B, S, d = h.shape
+    hf = h.reshape(B * S, d)
+    logits = hf @ small["router"]
+    eids, keep = walk["eids"], walk["keep"]
+    k_active, k = int(ctrl["topk"]), eids.shape[1]
+    if flips is not None:
+        flips.append(route_flips(logits, hf, small["router"], walk,
+                                 k_active))
+    gates = torch.softmax(torch.gather(logits, 1, eids), dim=-1)
+    live = torch.arange(k, device=h.device) < k_active
+    gates = torch.where(live, gates, 0.0)
+    gates = torch.where(live, gates / gates.sum(-1, keepdim=True
+                                                ).clamp_min(1e-9), 0.0)
+    weight = gates * keep
+    width = ctrl["moe_ffn_width"]
+    y = torch.zeros_like(hf)
+    for e in range(cfg32.n_experts):
+        sel = (eids == e) & keep
+        rows = sel.any(-1).nonzero().flatten()
+        if rows.numel() == 0:
+            continue
+        wg, wu, wd = (p[n][e].float() for n in ("wg", "wu", "wd"))
+        a = F.silu(hf[rows] @ wg) * (hf[rows] @ wu)
+        a = ops.slice_mask(a, width)
+        y[rows] += (a @ wd) * (weight * sel).sum(-1)[rows, None]
+        del wg, wu, wd
+    if cfg32.shared_expert:
+        a = F.silu(hf @ small["swg"]) * (hf @ small["swu"])
+        y = y + ops.slice_mask(a, width) @ small["swd"]
+    return s, y.reshape(B, S, d)
 
 
 def _leaves(tree):
@@ -1566,14 +2012,18 @@ def main(argv) -> int:
                      timed("switch", phase_switch, torch)]
     timed("trace", phase_trace, torch)
     timed("reference", phase_reference, torch)
-    path_launches += timed("configs", phase_configs, torch)
+    path_launches += timed("configs", phase_configs, torch, card)
+    path_launches += timed("moe", phase_moe, torch, card)
     line = []
     for name in PATH_KERNELS:
         route, source, replaces = SOURCES[name]
         k = kernels[name]
+        # the grouped sliced_matmul counts under a name of its own
+        keys = (name, GROUPED) if name == "sliced_matmul" else (name,)
         entry = {"name": name, "route": route, "source": source,
                  "replaces": replaces,
-                 "launches": sum(n.get(name, 0) for n in path_launches),
+                 "launches": sum(n.get(key, 0) for n in path_launches
+                                 for key in keys),
                  "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                  "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                  "bound_by": k["bound_by"],
@@ -1586,6 +2036,17 @@ def main(argv) -> int:
                     "bound_by", "library_ms", "device_ms",
                     "library_device_ms")}
                 for key, row in k["head_dims"].items()}
+        if "experts" in k:
+            # over a stack of experts (EXPERT_STACKS), one launch for all;
+            # its launches are part of the entry's
+            entry["experts_launches"] = sum(n.get(GROUPED, 0)
+                                            for n in path_launches)
+            entry["experts"] = {
+                key: {f: row[f] for f in (
+                    "shape", "width", "max_abs_err", "ms", "plain_ms",
+                    "bound_ms", "bound_by", "library_ms", "device_ms",
+                    "library_device_ms")}
+                for key, row in k["experts"].items()}
         line.append(entry)
     if any(e["launches"] <= 0 for e in line):
         fail("a kernel of the path was never launched")

@@ -15,6 +15,8 @@ _ARCH_MODULES = (
     "qwen2_1p5b",
     "h2o_danube_3_4b",
     "stablelm_3b",
+    "mixtral_8x7b",
+    "llama4_maverick_400b_a17b",
 )
 
 _REGISTRY: Dict[str, ArchConfig] = {}

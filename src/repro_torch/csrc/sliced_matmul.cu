@@ -46,6 +46,16 @@
 // launch. The same plan is written in Python (kernels/sliced_matmul.py,
 // split_plan) for the tests.
 //
+// A stack of experts. x (E, M, K), w (E, K, N) and y (E, M, N) hold E
+// independent products that share the widths, y[e] = x[e] @ w[e] sliced as
+// above, all in one launch (MoE switch mode: every expert's gate, up or
+// down projection at once). The tensor maps are 3-d, so a row tile past M
+// inside one expert loads zeros from the hardware, never the next
+// expert's rows; the live tiles are (expert, row tile, column tile),
+// expert-major, and the plan is the one above over E times as many tiles
+// (at E x live tiles >= grid it splits no tile, so the scratch does not
+// grow with E). A 2-d product is the stack of one.
+//
 // Main loop (for the bytes: many in flight without spending threads on
 // them; for the operations at M = 2048: wgmma). Tiles of BM x 128 outputs
 // and 64-deep K steps; BM = 64 up to M = 128 (one warpgroup; twice the
@@ -105,11 +115,12 @@ struct Tiles {
 
 // The division of the live work among the blocks (see the header).
 struct Plan {
-  int mt, nt;      // row and column tiles of y
+  int ne;          // experts
+  int mt, nt;      // row and column tiles of one expert's y
   int nl;          // live column tiles
   int kl, T;       // live K tiles per segment, over all segments
   int S, E, U;     // splits per live tile (S + 1 for tiles t < E), units
-  int n_dead;      // dead tiles (mt x (nt - nl))
+  int n_dead;      // dead tiles (ne x mt x (nt - nl))
 
   // unit u: live tile t, split s of n, numbered tile by tile
   __device__ void unit(int u, int& t, int& s, int& n) const {
@@ -128,6 +139,22 @@ struct Plan {
   __device__ int first_slot(int t) const {
     return t < E ? t * (S + 1) : E * (S + 1) + (t - E) * S;
   }
+  // expert, first row and first column of live tile t: rows vary
+  // fastest, then columns, then experts
+  __device__ void place(int t, int bm, int& e, int& m0, int& n0) const {
+    e = t / (mt * nl);
+    const int r = t - e * mt * nl;
+    m0 = (r % mt) * bm;
+    n0 = (r / mt) * BN;
+  }
+  // the same of dead tile d (its columns from nl on)
+  __device__ void place_dead(int d, int bm, int& e, int& m0, int& n0) const {
+    const int per = mt * (nt - nl);
+    e = d / per;
+    const int r = d - e * per;
+    m0 = (r % mt) * bm;
+    n0 = (nl + r / mt) * BN;
+  }
 };
 
 __device__ __forceinline__ long long cdiv(long long a, long long b) {
@@ -140,16 +167,17 @@ __device__ __forceinline__ long long cdiv(long long a, long long b) {
 // SPLIT_COST * S for a split tile's fp32 partials (written, then read back
 // by its last block), which measured on the H100 at about SPLIT_COST K
 // steps each; the least cost wins, the smallest S among equals.
-__device__ Plan make_plan(unsigned long long* best, int M, int N, int nseg,
-                          int ai, int ao, int grid, int bm) {
+__device__ Plan make_plan(unsigned long long* best, int ne, int M, int N,
+                          int nseg, int ai, int ao, int grid, int bm) {
   Plan p;
+  p.ne = ne;
   p.kl = (ai + BK - 1) / BK;
   p.T = p.kl * nseg;
   p.nl = p.T > 0 ? (ao + BN - 1) / BN : 0;
   p.mt = (M + bm - 1) / bm;
   p.nt = (N + BN - 1) / BN;
-  p.n_dead = p.mt * (p.nt - p.nl);
-  const int L = p.mt * p.nl;
+  p.n_dead = ne * p.mt * (p.nt - p.nl);
+  const int L = ne * p.mt * p.nl;
   if (threadIdx.x == 0) *best = ~0ull;
   __syncthreads();
   if (L > 0) {
@@ -209,8 +237,8 @@ template <int BM>
 __global__ void __launch_bounds__(Tiles<BM>::THREADS, 1)
 sliced_matmul_kernel(const __grid_constant__ CUtensorMap tmx,
                      const __grid_constant__ CUtensorMap tmw,
-                     __nv_bfloat16* __restrict__ y, int M, int N, int seg,
-                     int nseg, long long ys,
+                     __nv_bfloat16* __restrict__ y, int ne, int M, int N,
+                     int seg, int nseg, long long ys, long long yes,
                      const int* __restrict__ ai_ptr, int ai_static,
                      const int* __restrict__ ao_ptr, int ao_static,
                      float* __restrict__ part, int* __restrict__ counters) {
@@ -235,7 +263,7 @@ sliced_matmul_kernel(const __grid_constant__ CUtensorMap tmx,
   int ao = ao_ptr != nullptr ? *ao_ptr : ao_static;
   ai = max(0, min(ai, seg));
   ao = max(0, min(ao, N));
-  const Plan p = make_plan(&best, M, N, nseg, ai, ao, gridDim.x, BM);
+  const Plan p = make_plan(&best, ne, M, N, nseg, ai, ao, gridDim.x, BM);
   if (tid == 0) {
     for (int i = 0; i < STAGES; ++i) {
       mbar_init(&full[i], 1);
@@ -251,9 +279,9 @@ sliced_matmul_kernel(const __grid_constant__ CUtensorMap tmx,
     if (tid == NC) {
       int stage = 0, phase = 0;
       for (int u = blockIdx.x; u < p.U; u += gridDim.x) {
-        int t, split, n;
+        int t, split, n, e, m0, n0;
         p.unit(u, t, split, n);
-        const int m0 = (t % p.mt) * BM, n0 = (t / p.mt) * BN;
+        p.place(t, BM, e, m0, n0);
         const int j1 = (split + 1) * p.T / n;
         for (int j = split * p.T / n; j < j1; ++j) {
           const int s = j / p.kl;
@@ -261,10 +289,10 @@ sliced_matmul_kernel(const __grid_constant__ CUtensorMap tmx,
           mbar_wait(&empty[stage], phase ^ 1);
           unsigned char* st = ring + stage * TL::STAGE_BYTES;
           mbar_expect_tx(&full[stage], TL::STAGE_BYTES);
-          tma_load(st, &tmx, &full[stage], k0, m0);
-          tma_load(st + TL::X_BYTES, &tmw, &full[stage], n0, k0);
-          tma_load(st + TL::X_BYTES + BK * WBOX * 2, &tmw, &full[stage],
-                   n0 + WBOX, k0);
+          tma_load_3d(st, &tmx, &full[stage], k0, m0, e);
+          tma_load_3d(st + TL::X_BYTES, &tmw, &full[stage], n0, k0, e);
+          tma_load_3d(st + TL::X_BYTES + BK * WBOX * 2, &tmw, &full[stage],
+                      n0 + WBOX, k0, e);
           if (++stage == STAGES) {
             stage = 0;
             phase ^= 1;
@@ -277,12 +305,14 @@ sliced_matmul_kernel(const __grid_constant__ CUtensorMap tmx,
 
   // consumers: dead tiles first (stores only, while the ring fills)
   for (int d = blockIdx.x; d < p.n_dead; d += gridDim.x) {
-    const int m0 = (d % p.mt) * BM, n0 = (p.nl + d / p.mt) * BN;
+    int e, m0, n0;
+    p.place_dead(d, BM, e, m0, n0);
+    __nv_bfloat16* ye = y + e * yes;
     for (int i = tid; i < BM * (BN / 8); i += NC) {
       const int r = m0 + i / (BN / 8);
       const int c = n0 + (i % (BN / 8)) * 8;
       if (r < M && c < N)
-        *reinterpret_cast<uint4*>(y + r * ys + c) = make_uint4(0, 0, 0, 0);
+        *reinterpret_cast<uint4*>(ye + r * ys + c) = make_uint4(0, 0, 0, 0);
     }
   }
 
@@ -294,9 +324,9 @@ sliced_matmul_kernel(const __grid_constant__ CUtensorMap tmx,
   int stage = 0, phase = 0, prev = 0;
   for (int u = blockIdx.x; u < p.U; u += gridDim.x) {
     // unit u: K tiles [j0, j1) of live tile t, split `split` of n
-    int t, split, n;
+    int t, split, n, e, m0, n0;
     p.unit(u, t, split, n);
-    const int m0 = (t % p.mt) * BM, n0 = (t / p.mt) * BN;
+    p.place(t, BM, e, m0, n0);
     const int j0 = split * p.T / n, j1 = (split + 1) * p.T / n;
     // a fresh accumulator: the last tile's is dead once staged, which
     // leaves the epilogue its registers
@@ -426,7 +456,7 @@ sliced_matmul_kernel(const __grid_constant__ CUtensorMap tmx,
             col + 2 * e + 1 < ao ? src[2 * e + 1] : 0.f);
         packed[e] = *reinterpret_cast<const uint32_t*>(&b2);
       }
-      *reinterpret_cast<uint4*>(y + (m0 + c / CH) * ys + col) =
+      *reinterpret_cast<uint4*>(y + e * yes + (m0 + c / CH) * ys + col) =
           make_uint4(packed[0], packed[1], packed[2], packed[3]);
     }
   }
@@ -436,47 +466,54 @@ sliced_matmul_kernel(const __grid_constant__ CUtensorMap tmx,
 // host side: tensor maps and the launch
 // -------------------------------------------------------------------------
 
-// a (rows, cols) bf16 matrix of row stride `stride` elements, read in
-// boxes of box_rows x 64 columns (128 bytes) with the 128-byte swizzle;
-// what lies outside the matrix loads as zeros
-bool encode(CUtensorMap* map, const void* base, long long rows,
-            long long cols, long long stride, int box_rows) {
+// a stack of `ne` (rows, cols) bf16 matrices, rows `stride` and matrices
+// `estride` elements apart, read in boxes of box_rows x 64 columns (128
+// bytes) of one matrix with the 128-byte swizzle; what lies outside a
+// matrix loads as zeros
+bool encode(CUtensorMap* map, const void* base, long long ne, long long rows,
+            long long cols, long long stride, long long estride,
+            int box_rows) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
-                              static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(stride) * 2};
-  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t elem[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(ne)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(stride) * 2,
+                                 static_cast<cuuint64_t>(estride) * 2};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// weight maps by (pointer, rows, columns, stride): the weights live for
-// the model's life, so each is encoded once
+// weight maps by (pointer, experts, rows, columns, strides): the weights
+// live for the model's life, so each is encoded once
 std::mutex weight_maps_mu;
-std::map<std::tuple<const void*, int, int, long long>, CUtensorMap> weight_maps;
+std::map<std::tuple<const void*, int, int, int, long long, long long>,
+         CUtensorMap> weight_maps;
 constexpr size_t WEIGHT_MAPS_MAX = 4096;
 
-bool weight_map(CUtensorMap* map, const void* w, int K, int N, long long ws) {
-  const auto key = std::make_tuple(w, K, N, ws);
+bool weight_map(CUtensorMap* map, const void* w, int ne, int K, int N,
+                long long ws, long long wes) {
+  const auto key = std::make_tuple(w, ne, K, N, ws, wes);
   std::lock_guard<std::mutex> lock(weight_maps_mu);
   const auto it = weight_maps.find(key);
   if (it != weight_maps.end()) {
     *map = it->second;
     return true;
   }
-  if (!encode(map, w, K, N, ws, BK)) return false;
+  if (!encode(map, w, ne, K, N, ws, wes, BK)) return false;
   if (weight_maps.size() >= WEIGHT_MAPS_MAX) weight_maps.clear();
   weight_maps.emplace(key, *map);
   return true;
 }
 
 template <int BM>
-int launch(const CUtensorMap& tmx, const CUtensorMap& tmw, void* y, int M,
-           int N, int seg, int nseg, long long ys, const void* ai_ptr,
+int launch(const CUtensorMap& tmx, const CUtensorMap& tmw, void* y, int ne,
+           int M, int N, int seg, int nseg, long long ys, long long yes,
+           const void* ai_ptr,
            int ai_static, const void* ao_ptr, int ao_static, void* part,
            void* counters, int grid, cudaStream_t stream) {
   // dynamic shared memory above 48 KB, allowed once per device
@@ -496,7 +533,7 @@ int launch(const CUtensorMap& tmx, const CUtensorMap& tmw, void* y, int M,
   }
   sliced_matmul_kernel<BM><<<grid, Tiles<BM>::THREADS, Tiles<BM>::SMEM,
                              stream>>>(
-      tmx, tmw, static_cast<__nv_bfloat16*>(y), M, N, seg, nseg, ys,
+      tmx, tmw, static_cast<__nv_bfloat16*>(y), ne, M, N, seg, nseg, ys, yes,
       static_cast<const int*>(ai_ptr), ai_static,
       static_cast<const int*>(ao_ptr), ao_static, static_cast<float*>(part),
       static_cast<int*>(counters));
@@ -511,6 +548,7 @@ int block_rows(int M) { return M <= 128 ? 64 : 128; }
 // arrival counter per live tile that may be split. A tile is split either
 // when S > 1, and then L * S <= WS_TILES * grid gives L <= WS_TILES * grid
 // / 2, or when the spare blocks of one round split it, and then L < grid.
+// L counts the tiles of every expert, so neither bound depends on E.
 long long workspace_elems(int M, int grid) {
   return static_cast<long long>(WS_TILES) * grid * block_rows(M) * BN;
 }
@@ -532,9 +570,11 @@ extern "C" int repro_sliced_matmul_workspace(int M, int grid,
   return 0;
 }
 
-// x: (M, K) rows of stride xs; w: (K, N) rows of stride ws; y: (M, N) rows
-// of stride ys; strides in elements, rows 16-byte aligned (checked by the
-// Python wrapper). K is cut into nseg segments of K / nseg columns. Each
+// x: E matrices (M, K) of row stride xs, xes apart; w: E matrices (K, N)
+// of row stride ws, wes apart; y: E matrices (M, N) of row stride ys, yes
+// apart; strides in elements, rows 16-byte aligned (checked by the Python
+// wrapper); E = 1 for a 2-d product. K is cut into nseg segments of
+// K / nseg columns. Each
 // width pointer may be null, then its static value is used. `part` holds
 // `part_elems` fp32 elements and `counters` `n_counters` int32 zeros (left
 // zero by every launch); a launch whose scratch is smaller than
@@ -542,25 +582,28 @@ extern "C" int repro_sliced_matmul_workspace(int M, int grid,
 // launched whatever the widths. Returns the CUDA error code of the launch
 // (0 = launched).
 extern "C" int repro_sliced_matmul_bf16(
-    const void* x, const void* w, void* y, int M, int N, int K, int nseg,
-    long long xs, long long ws, long long ys,
+    const void* x, const void* w, void* y, int E, int M, int N, int K,
+    int nseg, long long xs, long long ws, long long ys, long long xes,
+    long long wes, long long yes,
     const void* ai_ptr, int ai_static, const void* ao_ptr, int ao_static,
     void* part, long long part_elems, void* counters, long long n_counters,
     int grid, void* stream) {
-  if (M <= 0 || N <= 0) return 0;
+  if (E <= 0 || M <= 0 || N <= 0) return 0;
   if (nseg <= 0 || K % nseg != 0 || (K / nseg) % 8 != 0 || N % 8 != 0 ||
-      xs % 8 != 0 || ws % 8 != 0 || ys % 8 != 0 || grid <= 0 ||
+      xs % 8 != 0 || ws % 8 != 0 || ys % 8 != 0 || xes % 8 != 0 ||
+      wes % 8 != 0 || yes % 8 != 0 || grid <= 0 ||
       part_elems < workspace_elems(M, grid) ||
       n_counters < workspace_counters(grid))
     return static_cast<int>(cudaErrorInvalidValue);
   const int bm = block_rows(M);
   CUtensorMap tmx, tmw;
-  if (!encode(&tmx, x, M, K, xs, bm) || !weight_map(&tmw, w, K, N, ws))
+  if (!encode(&tmx, x, E, M, K, xs, xes, bm) ||
+      !weight_map(&tmw, w, E, K, N, ws, wes))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   return bm == 64
-      ? launch<64>(tmx, tmw, y, M, N, K / nseg, nseg, ys, ai_ptr, ai_static,
-                   ao_ptr, ao_static, part, counters, grid, s)
-      : launch<128>(tmx, tmw, y, M, N, K / nseg, nseg, ys, ai_ptr,
+      ? launch<64>(tmx, tmw, y, E, M, N, K / nseg, nseg, ys, yes, ai_ptr,
+                   ai_static, ao_ptr, ao_static, part, counters, grid, s)
+      : launch<128>(tmx, tmw, y, E, M, N, K / nseg, nseg, ys, yes, ai_ptr,
                     ai_static, ao_ptr, ao_static, part, counters, grid, s);
 }

@@ -109,7 +109,9 @@ def sliced_matmul(x, w, active_in, active_out, *, segments=1, bm=128, bk=128,
                   bn=128, tier=None):
     """``x[..., :active_in] @ w[:active_in, :active_out]``, zeros past
     ``active_out``; with ``segments`` > 1 the prefix is taken in each of
-    that many equal segments of K (see ``kernels/sliced_matmul.py``)."""
+    that many equal segments of K. Given a stack of experts, x (E, M, K)
+    and w (E, K, N), every ``x[e] @ w[e]`` with the same widths, in one
+    launch on the card (see ``kernels/sliced_matmul.py``)."""
     return DISPATCHER.call(
         "sliced_matmul", x, w, active_in, active_out, segments=segments,
         bm=bm, bk=bk, bn=bn, tier=tier)

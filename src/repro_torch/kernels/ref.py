@@ -30,11 +30,12 @@ def take_row(table: torch.Tensor, idx) -> torch.Tensor:
 
 
 def sliced_matmul_ref(x, w, active_in, active_out):
-    """y = x[..., :k_in] @ w[:k_in, :k_out], zero-padded to w.shape[1].
+    """y = x[..., :k_in] @ w[:k_in, :k_out], zero-padded to w.shape[-1];
+    with a stack w (E, K, N) and x (E, M, K), each ``x[e] @ w[e]`` alike.
 
     WeightSlice semantics: channels beyond the active widths contribute
     nothing and produce nothing."""
-    K, N = w.shape
+    K, N = w.shape[-2:]
     xm = x * (torch.arange(K, device=x.device) < active_in).to(x.dtype)
     y = xm.float() @ w.float()
     return (y * (torch.arange(N, device=x.device) < active_out).to(y.dtype)

@@ -32,7 +32,10 @@ main loop is a TMA ring filled by one producer warp and drained by
 
 The wrapper takes 2-d operands with any row stride that keeps rows 16-byte
 aligned, so per-group views need no copy; ``x`` of more dimensions is
-flattened to rows.
+flattened to rows. Given a stack of experts, ``w`` of shape (E, K, N) and
+``x`` of shape (E, M, K), it computes every ``x[e] @ w[e]`` with the same
+widths in one launch (MoE switch mode): the plan's live tiles are then
+(expert, row tile, column tile), expert-major, E times as many.
 """
 from __future__ import annotations
 
@@ -49,9 +52,11 @@ from repro_torch.kernels import build
 from repro_torch.kernels.decode_attention import _sm_count
 
 NAME = "sliced_matmul"
+# the launch count of the form over a stack of experts
+GROUPED = "sliced_matmul.experts"
 _C = "repro_sliced_matmul_bf16"
-_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
-             + [ctypes.c_longlong] * 3
+_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+             + [ctypes.c_longlong] * 6
              + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
              + [ctypes.c_void_p, ctypes.c_longlong] * 2
              + [ctypes.c_int, ctypes.c_void_p])
@@ -81,11 +86,12 @@ def block_rows(M: int) -> int:
 
 
 def sliced_matmul_plain(x, w, active_in, active_out, *, segments: int = 1):
-    """The plain PyTorch version. x: (..., K); w: (K, N); widths None (the
-    full width), ints or 0-d integer tensors (used as data). Channel k of
-    x counts when ``k % (K // segments) < active_in``; output columns at
-    or past ``active_out`` are 0. fp32 accumulation, output in x's dtype."""
-    K, N = w.shape
+    """The plain PyTorch version. x: (..., K) with w: (K, N), or x: (E, M,
+    K) with a stack w: (E, K, N); widths None (the full width), ints or 0-d
+    integer tensors (used as data). Channel k of x counts when ``k % (K //
+    segments) < active_in``; output columns at or past ``active_out`` are
+    0. fp32 accumulation, output in x's dtype."""
+    K, N = w.shape[-2:]
     if active_in is not None:
         keep = (torch.arange(K, device=x.device) % (K // segments)) < active_in
         x = x * keep.to(x.dtype)
@@ -134,6 +140,7 @@ class SplitPlan:
     workspace slot u; the splits of a tile are summed in split order."""
     grid: int
     bm: int               # rows of a block tile: block_rows(M)
+    experts: int          # E: products of the stack, 1 for a 2-d one
     m_tiles: int
     n_tiles: int
     live_n_tiles: int     # column tiles that start below active_out
@@ -146,7 +153,7 @@ class SplitPlan:
 
     @property
     def live_tiles(self) -> int:
-        return self.m_tiles * self.live_n_tiles
+        return self.experts * self.m_tiles * self.live_n_tiles
 
     @property
     def units(self) -> int:
@@ -154,12 +161,14 @@ class SplitPlan:
 
     @property
     def dead_tiles(self) -> int:
-        return self.m_tiles * (self.n_tiles - self.live_n_tiles)
+        return self.experts * self.m_tiles * (self.n_tiles - self.live_n_tiles)
 
-    def tile(self, t: int) -> Tuple[int, int]:
-        """(m tile, n tile) of live tile t; rows vary fastest, so the
-        blocks of one weight column tile run side by side."""
-        return t % self.m_tiles, t // self.m_tiles
+    def tile(self, t: int) -> Tuple[int, int, int]:
+        """(expert, m tile, n tile) of live tile t; rows vary fastest, so
+        the blocks of one weight column tile run side by side, then
+        columns, then experts."""
+        e, r = divmod(t, self.m_tiles * self.live_n_tiles)
+        return e, r % self.m_tiles, r // self.m_tiles
 
     def unit(self, u: int) -> Tuple[int, int, int]:
         """(live tile, split, splits of that tile) of unit u."""
@@ -192,16 +201,20 @@ class SplitPlan:
         for u in range(cta, self.units, self.grid):
             yield self.unit(u)
 
-    def dead_of(self, cta: int) -> Iterator[Tuple[int, int]]:
-        """(m tile, n tile) of each dead tile block ``cta`` zero-writes."""
+    def dead_of(self, cta: int) -> Iterator[Tuple[int, int, int]]:
+        """(expert, m tile, n tile) of each dead tile block ``cta``
+        zero-writes."""
+        per = self.m_tiles * (self.n_tiles - self.live_n_tiles)
         for d in range(cta, self.dead_tiles, self.grid):
-            yield d % self.m_tiles, self.live_n_tiles + d // self.m_tiles
+            e, r = divmod(d, per)
+            yield e, r % self.m_tiles, self.live_n_tiles + r // self.m_tiles
 
 
 def split_plan(M: int, N: int, K: int, segments: int, active_in, active_out,
-               grid: int) -> SplitPlan:
-    """The schedule the kernel computes on the card, from the shapes, the
-    widths (None: full) and the grid size alone."""
+               grid: int, experts: int = 1) -> SplitPlan:
+    """The schedule the kernel computes on the card, from the shapes (M, N
+    and K of each of ``experts`` products), the widths (None: full) and
+    the grid size alone."""
     seg = K // segments
     ai = seg if active_in is None else min(max(int(active_in), 0), seg)
     ao = N if active_out is None else min(max(int(active_out), 0), N)
@@ -210,10 +223,11 @@ def split_plan(M: int, N: int, K: int, segments: int, active_in, active_out,
     T = kl * segments
     nl = _cdiv(ao, BN) if T else 0
     mt = _cdiv(M, bm)
-    L = mt * nl
+    L = experts * mt * nl
     S = choose_splits(L, T, grid)
     extra = min(L, grid - L * S) if L * S < grid and S < T else 0
-    return SplitPlan(grid=grid, bm=bm, m_tiles=mt, n_tiles=_cdiv(N, BN), live_n_tiles=nl, k_tiles=T,
+    return SplitPlan(grid=grid, bm=bm, experts=experts, m_tiles=mt,
+                     n_tiles=_cdiv(N, BN), live_n_tiles=nl, k_tiles=T,
                      k_tiles_per_seg=kl, splits=S, extra=extra, seg=seg,
                      active_in=ai)
 
@@ -234,7 +248,9 @@ _scratch = {}
 @functools.lru_cache(maxsize=256)
 def _workspace_size(M: int, grid: int) -> Tuple[int, int]:
     """(fp32 elements, int32 counters) of the scratch of an M-row launch on
-    ``grid`` blocks, as the kernel's own source decides them."""
+    ``grid`` blocks, as the kernel's own source decides them. A stack of
+    experts needs no more: the plan splits tiles only while all experts'
+    units fit the same bound."""
     elems, counters = ctypes.c_longlong(), ctypes.c_longlong()
     build.check(NAME, build.function(_C_WORKSPACE, _WORKSPACE_ARGTYPES)(
         M, grid, ctypes.byref(elems), ctypes.byref(counters)))
@@ -276,33 +292,37 @@ def _width(name: str, val, full: int, device):
 
 
 def _check_rows(name: str, t: torch.Tensor) -> None:
-    if t.stride(-1) != 1 or t.stride(0) % 8 or t.data_ptr() % 16:
+    if t.stride(-1) != 1 or any(st % 8 for st in t.stride()[:-1]) \
+            or t.data_ptr() % 16:
         raise ValueError(f"{NAME}: {name} needs contiguous, 16-byte aligned "
                          f"rows; got strides {t.stride()}")
 
 
 def sliced_matmul(x, w, active_in, active_out, *, segments: int = 1):
-    """x: (..., K) or a strided (M, K) view; w: (K, N); bf16 CUDA tensors.
-    Returns (..., N) bf16 (see :func:`sliced_matmul_plain`)."""
+    """x: (..., K) or a strided (M, K) view with w: (K, N), or x: (E, M, K)
+    with a stack w: (E, K, N); bf16 CUDA tensors. Returns (..., N), or
+    (E, M, N), bf16 (see :func:`sliced_matmul_plain`)."""
     for name, t in (("x", x), ("w", w)):
         if t.device.type != "cuda" or t.device != x.device:
             raise ValueError(f"{NAME}: {name} must be on {x.device} (CUDA), "
                              f"got {t.device}")
         if t.dtype != torch.bfloat16:
             raise TypeError(f"{NAME}: {name} must be bfloat16, got {t.dtype}")
-    if w.dim() != 2 or x.shape[-1] != w.shape[0]:
+    stack = w.dim() == 3
+    if w.dim() not in (2, 3) or x.shape[-1] != w.shape[-2] or (
+            stack and (x.dim() != 3 or x.shape[0] != w.shape[0])):
         raise ValueError(f"{NAME}: x {tuple(x.shape)} @ w {tuple(w.shape)}")
-    K, N = w.shape
+    K, N = w.shape[-2:]
     if segments < 1 or K % segments or (K // segments) % 8 or N % 8:
         raise ValueError(f"{NAME}: K={K} in {segments} segments and N={N} "
                          f"must be multiples of 8")
     lead = x.shape[:-1]
-    x2 = x if x.dim() == 2 else x.reshape(-1, K)
+    x2 = x if x.dim() == 2 or stack else x.reshape(-1, K)
     _check_rows("x", x2)
     _check_rows("w", w)
-    M = x2.shape[0]
-    y = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    if M == 0:
+    M = x2.shape[-2]
+    y = torch.empty(x2.shape[:-1] + (N,), dtype=x.dtype, device=x.device)
+    if y.numel() == 0:
         return y.reshape(*lead, N)
     ai_ptr, ai = _width("active_in", active_in, K // segments, x.device)
     ao_ptr, ao = _width("active_out", active_out, N, x.device)
@@ -311,18 +331,27 @@ def sliced_matmul(x, w, active_in, active_out, *, segments: int = 1):
     part, counters = _scratch_for(x.device, stream, M, grid)
     build.check(NAME, _launch(x2, w, y, segments, ai_ptr, ai, ao_ptr, ao,
                               part, counters, grid, stream))
-    compat.note_launch(NAME)
+    compat.note_launch(GROUPED if stack else NAME)
     return y.reshape(*lead, N)
 
 
 def _launch(x2, w, y, segments, ai_ptr, ai, ao_ptr, ao, part, counters,
             grid, stream) -> int:
-    """One launch of the C entry point; its CUDA error code (0: launched).
-    The kernel refuses scratch smaller than it needs."""
-    M, K = x2.shape
-    N = w.shape[1]
+    """One launch of the C entry point on 2-d operands or a stack of
+    experts (3-d); its CUDA error code (0: launched). The kernel refuses
+    scratch smaller than it needs."""
+    E = x2.shape[0] if x2.dim() == 3 else 1
+    M, K = x2.shape[-2:]
+    N = w.shape[-1]
+
+    def strides(t):
+        """(row stride, matrix stride) in elements."""
+        rs = t.stride(-2)
+        return rs, (t.stride(0) if t.dim() == 3 else t.shape[-2] * rs)
+
+    (xs, xes), (ws, wes), (ys, yes) = strides(x2), strides(w), strides(y)
     return build.function(_C, _ARGTYPES)(
-        x2.data_ptr(), w.data_ptr(), y.data_ptr(), M, N, K, segments,
-        x2.stride(0), w.stride(0), y.stride(0), ai_ptr, ai, ao_ptr, ao,
+        x2.data_ptr(), w.data_ptr(), y.data_ptr(), E, M, N, K, segments,
+        xs, ws, ys, xes, wes, yes, ai_ptr, ai, ao_ptr, ao,
         part.data_ptr(), part.numel(), counters.data_ptr(), counters.numel(),
         grid, stream)

@@ -11,8 +11,12 @@ subnet and batch), derives the arrival rate and SLO from the device's own
 latencies, and serves a trace through the unchanged scheduling stack.
 
 ``--arch`` names any registered config (``repro_torch.configs``):
-qwen2-1.5b, qwen2.5-14b, stablelm-3b or h2o-danube-3-4b. ``--size full``
-(the default on ``--device cuda``) keeps the published widths and depth;
+qwen2-1.5b, qwen2.5-14b, stablelm-3b, h2o-danube-3-4b, mixtral-8x7b or
+llama4-maverick-400b-a17b. ``--size full`` (the default on ``--device
+cuda``) keeps the published widths and depth; ``--units N`` keeps the
+first N repeat units of each stage (mixtral's 32 layers hold 93 GB of
+bf16 weights, more than one card), and a depth whose weights exceed the
+device's free memory is refused before anything is allocated.
 ``--size reduced`` is the small fp32 twin of the JAX launcher and runs
 with ``--device cpu`` (the default there), since the CUDA kernels take
 bf16 with head_dim 80, 120 or 128. ``--slice-mode switch`` serves
@@ -27,6 +31,7 @@ from __future__ import annotations
 import argparse
 import asyncio
 import json
+import os
 import time
 from typing import Dict, List, Optional
 
@@ -35,6 +40,8 @@ import torch
 
 from repro_torch import compat
 from repro_torch.configs import get_config
+from repro_torch.configs.base import ArchConfig, Stage
+from repro_torch.models import lm
 from repro_torch.serving import policies, traces
 
 PROFILE_BATCHES = (1, 2, 4, 8)
@@ -49,6 +56,37 @@ def _host_latency(executor, subnet_idx: int, seq_len: int,
         executor.run_prefill(subnet_idx, np.ones((1, seq_len), np.int32))
         best = min(best, time.perf_counter() - t0)
     return best
+
+
+def cut_units(cfg: ArchConfig, units: Optional[int]) -> ArchConfig:
+    """``cfg`` with the first ``units`` repeat units of each stage (all of
+    them for None)."""
+    if units is None:
+        return cfg
+    return cfg.replace(stages=tuple(Stage(s.pattern, min(units, s.repeat))
+                                    for s in cfg.stages))
+
+
+def free_bytes(device: torch.device) -> int:
+    """Memory free on ``device``: the card's, with what PyTorch's allocator
+    holds cached but no tensor uses, or the host's for the CPU."""
+    if device.type == "cuda":
+        return (torch.cuda.mem_get_info(device)[0]
+                + torch.cuda.memory_reserved(device)
+                - torch.cuda.memory_allocated(device))
+    return os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
+
+
+def check_fits(cfg: ArchConfig, available: float) -> None:
+    """Refuse (MemoryError) a model whose weights exceed ``available``
+    bytes."""
+    need = lm.param_bytes(cfg)
+    if need > available:
+        raise MemoryError(
+            f"{cfg.name} at {sum(s.repeat for s in cfg.stages)} repeat "
+            f"units holds {need / 1e9:.1f} GB of {cfg.dtype} weights, more "
+            f"than the {available / 1e9:.1f} GB free on the device; cut "
+            f"the depth with --units")
 
 
 def _serve_real(args, cfg, prof, pol, executor, arr, slo_s) -> Dict:
@@ -128,9 +166,14 @@ def parse_args(argv: Optional[List[str]] = None):
                     help="full: published widths and depth (default on "
                          "cuda); reduced: the small fp32 twin (default on "
                          "cpu)")
+    ap.add_argument("--units", type=int, default=None,
+                    help="with --size full: serve the first N repeat units "
+                         "of each stage (default: all)")
     args = ap.parse_args(argv)
     if args.size is None:
         args.size = "full" if args.device == "cuda" else "reduced"
+    if args.units is not None and (args.size != "full" or args.units < 1):
+        ap.error("--units takes a positive count, with --size full")
     if args.device == "cuda" and args.size == "reduced":
         ap.error("--size reduced has head_dim 32 in fp32; the CUDA kernels "
                  "take bf16 with head_dim 80, 120 or 128: use --device cpu")
@@ -144,8 +187,9 @@ def run(argv: Optional[List[str]] = None) -> Dict:
     cfg = get_config(args.arch)
     if cfg.family == "conv" or cfg.frontend != "token":
         raise ValueError(f"{args.arch}: the port serves token-frontend LMs")
-    if args.size == "reduced":
-        cfg = cfg.reduced()
+    cfg = cfg.reduced() if args.size == "reduced" \
+        else cut_units(cfg, args.units)
+    check_fits(cfg, free_bytes(device))
     from repro_torch.serving.executor import ExecutorConfig, build_executor
     t0 = time.perf_counter()
     executor = build_executor(
@@ -177,7 +221,8 @@ def run(argv: Optional[List[str]] = None) -> Dict:
         arr = traces.maf_like_trace(rate, duration, seed=args.seed)
     arr = np.asarray(arr, dtype=float)[: args.queries]
 
-    out = {"arch": args.arch, "size": args.size, "mode": "real",
+    out = {"arch": args.arch, "size": args.size,
+           "units": sum(s.repeat for s in cfg.stages), "mode": "real",
            "device": (torch.cuda.get_device_name(device)
                       if device.type == "cuda" else "cpu"),
            "slice_mode": executor.xcfg.slice_mode,

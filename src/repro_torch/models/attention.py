@@ -29,7 +29,7 @@ from repro_torch.core import operators as ops
 from repro_torch.core.subnet import head_group_size
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
-from repro_torch.models.common import dense_init, ones_table, pre_norm
+from repro_torch.models.common import Dense, ones_table, pre_norm
 
 # --------------------------------------------------------------------------
 # Rotary embeddings
@@ -71,10 +71,11 @@ def apply_rope(x, positions, theta: float, rotary_pct: float = 1.0,
 # --------------------------------------------------------------------------
 
 
-def init_attention(cfg: ArchConfig, dtype, generator, device) -> Dict:
+def init_attention(cfg: ArchConfig, dtype, device) -> Dict:
+    """One layer's leaves for ``common.stack_init``."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
     Hq, Hkv = cfg.n_heads, cfg.n_kv_heads
-    init = partial(dense_init, dtype=dtype, generator=generator, device=device)
+    init = partial(Dense, dtype=dtype)
     p = {
         "wq": init((d, Hq * hd)),
         "wk": init((d, Hkv * hd)),

@@ -1,6 +1,6 @@
 """Backbone engine: walks the Stage patterns layer by layer with SubNetAct
 LayerSelect gating, with per-kind caches for decode (port of
-``repro/models/backbone.py`` for ``attn`` and ``mlp`` blocks).
+``repro/models/backbone.py`` for ``attn``, ``mlp`` and ``moe`` blocks).
 
 Parameters of each stage keep the JAX layout, stacked along a leading
 ``repeat`` axis; layer ``r`` reads views ``leaf[r]``. The JAX backbone
@@ -9,7 +9,9 @@ here the layer gates are host numpy (see ``core.operators.layer_select``)
 and the walk is Python, so a gated-off layer launches nothing. Each
 block's residual add is left pending and made by the next block's
 pre-norm (one SubnetNorm launch on the card), so a walk makes one
-residual add of its own, at the end.
+residual add of its own, at the end. A layer gate covers a whole repeat
+unit of the stage's pattern (llama4's ``(attn, moe, attn, mlp)`` is one
+unit), as in the reference; MoE blocks keep no decode cache.
 """
 from __future__ import annotations
 
@@ -22,9 +24,12 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.operators import layer_select
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ffn as ffn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import stack_init, unstack
 
-_PORTED = ("attn", "mlp")
+_PORTED = ("attn", "mlp", "moe")
+_INITS = {"attn": attn_mod.init_attention, "mlp": ffn_mod.init_mlp,
+          "moe": moe_mod.init_moe}
 
 
 def _slot(j: int, kind: str) -> str:
@@ -51,15 +56,23 @@ def _check_ported(cfg: ArchConfig) -> None:
 
 def init_backbone(cfg: ArchConfig, dtype, generator, device) -> Dict:
     _check_ported(cfg)
-    inits = {"attn": attn_mod.init_attention, "mlp": ffn_mod.init_mlp}
     params: Dict[str, Any] = {"stages": []}
     for stage in cfg.stages:
         params["stages"].append({
             _slot(j, kind): stack_init(
-                lambda kind=kind: inits[kind](cfg, dtype, generator, device),
-                stage.repeat)
+                lambda kind=kind: _INITS[kind](cfg, dtype, device),
+                stage.repeat, generator, device)
             for j, kind in enumerate(stage.pattern)})
     return params
+
+
+def param_bytes(cfg: ArchConfig, dtype) -> int:
+    """Bytes of :func:`init_backbone`'s tree, from the leaves' shapes
+    alone (nothing is allocated)."""
+    _check_ported(cfg)
+    return sum(stage.repeat * leaf.dtype.itemsize * int(np.prod(leaf.shape))
+               for stage in cfg.stages for kind in stage.pattern
+               for leaf in _INITS[kind](cfg, dtype, "meta").values())
 
 
 def _gates(cfg: ArchConfig, ctrl) -> np.ndarray:
@@ -84,6 +97,14 @@ def _settle(pair):
     residual add of a walk that no pre-norm took."""
     x, delta = pair
     return x if delta is None else x + delta
+
+
+def _ffn(kind: str, p, cfg: ArchConfig, xd, ctrl, slice_mode: str):
+    """An ``mlp`` or ``moe`` block on the pair ``xd = (x, delta)``; decode
+    calls it on ``(B, 1, d)``, so a MoE block routes B tokens."""
+    block = (moe_mod.moe_block_pending if kind == "moe"
+             else ffn_mod.mlp_block_pending)
+    return block(p, cfg, *xd, ctrl, slice_mode=slice_mode)
 
 
 def backbone_forward(params, cfg: ArchConfig, x, ctrl, positions, *,
@@ -111,8 +132,7 @@ def backbone_forward(params, cfg: ArchConfig, x, ctrl, positions, *,
                             p, cfg, *xd, ctrl, positions,
                             slice_mode=slice_mode, attn_impl=attn_impl)
                     else:
-                        xd = ffn_mod.mlp_block_pending(
-                            p, cfg, *xd, ctrl, slice_mode=slice_mode)
+                        xd = _ffn(kind, p, cfg, xd, ctrl, slice_mode)
                 return xd
 
             pair = layer_select(gates[offset + r], unit, pair)
@@ -172,8 +192,7 @@ def backbone_decode(params, cfg: ArchConfig, x, ctrl, cache, index, *,
                             p, cfg, *xd, ctrl, unstack(sc[slot], r), index,
                             slice_mode=slice_mode)
                     else:
-                        xd = ffn_mod.mlp_block_pending(
-                            p, cfg, *xd, ctrl, slice_mode=slice_mode)
+                        xd = _ffn(kind, p, cfg, xd, ctrl, slice_mode)
                 return xd
 
             pair = layer_select(gates[offset + r], unit, pair)

@@ -6,11 +6,16 @@ out)`` matrices used as ``x @ W`` and per-stage leaves stacked along a
 leading ``repeat`` axis. Random initialization draws from an explicit
 ``torch.Generator`` on the parameters' device; it does not reproduce JAX's
 numbers (tests copy JAX-initialized trees across with
-``lm.from_jax_params``).
+``lm.from_jax_params``). A block's init function describes its random
+leaves as :class:`Dense` specs, and :func:`stack_init` allocates each
+stacked leaf once and draws it in place, layer by layer (and expert by
+expert for an expert table), so no leaf is held twice and no fp32
+temporary is larger than one layer's matrix or one expert's.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, Tuple
 
 import numpy as np
 import torch
@@ -24,14 +29,37 @@ def dtype_of(cfg) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
+@dataclass(frozen=True)
+class Dense:
+    """A truncated-normal fan-in leaf not drawn yet (see
+    :func:`fill_dense`): what a block's init function returns for each
+    random matrix, for :func:`stack_init` to allocate and draw."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+    scale: float = 1.0
+
+
+def fill_dense(out: torch.Tensor, generator: torch.Generator,
+               scale: float = 1.0) -> torch.Tensor:
+    """Draw ``out`` in place (LM standard): N(0, 1) cut to [-2, 2], times
+    ``scale / sqrt(out.shape[0])``. The fan-in is the first axis whatever
+    the rank, as in ``repro/models/common.py``: for an ``(E, d, f)``
+    expert table that is E. A 3-d leaf is drawn one ``out[e]`` at a time,
+    so the fp32 temporary is one expert's matrix."""
+    std = scale / np.sqrt(max(out.shape[0], 1))
+    for part in (out if out.dim() > 2 else (out,)):
+        t = torch.empty(part.shape, dtype=torch.float32, device=out.device)
+        torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0,
+                                    generator=generator)
+        part.copy_(t * std)
+    return out
+
+
 def dense_init(shape, dtype, generator: torch.Generator, device,
                scale: float = 1.0) -> torch.Tensor:
-    """Truncated-normal fan-in init (LM standard): N(0, 1) cut to
-    [-2, 2], times ``scale / sqrt(shape[0])``."""
-    std = scale / np.sqrt(max(shape[0], 1))
-    t = torch.empty(shape, dtype=torch.float32, device=device)
-    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
-    return (t * std).to(dtype)
+    """A new leaf of ``shape`` drawn by :func:`fill_dense`."""
+    return fill_dense(torch.empty(shape, dtype=dtype, device=device),
+                      generator, scale)
 
 
 def ones_table(n_subnets: int, d: int, device, dtype=torch.float32):
@@ -40,11 +68,24 @@ def ones_table(n_subnets: int, d: int, device, dtype=torch.float32):
     return torch.ones((n_subnets, d), dtype=dtype, device=device)
 
 
-def stack_init(init_fn: Callable[[], Dict], repeat: int) -> Dict:
-    """Initialize ``repeat`` copies of a sub-block and stack every leaf
-    along a new leading axis (the JAX scan-over-layers layout)."""
-    parts = [init_fn() for _ in range(repeat)]
-    return {k: torch.stack([p[k] for p in parts]) for k in parts[0]}
+def stack_init(init_fn: Callable[[], Dict], repeat: int,
+               generator: torch.Generator, device) -> Dict:
+    """``repeat`` copies of a sub-block with every leaf stacked along a new
+    leading axis (the JAX scan-over-layers layout). ``init_fn()`` gives one
+    layer's leaves: tensors, copied in, or :class:`Dense` specs, drawn in
+    place. Each stacked leaf is allocated once and filled layer by layer,
+    in the order of the layers and then of the leaves."""
+    out: Dict[str, torch.Tensor] = {}
+    for r in range(repeat):
+        for k, leaf in init_fn().items():
+            if k not in out:
+                out[k] = torch.empty((repeat,) + tuple(leaf.shape),
+                                     dtype=leaf.dtype, device=device)
+            if isinstance(leaf, Dense):
+                fill_dense(out[k][r], generator, leaf.scale)
+            else:
+                out[k][r].copy_(leaf)
+    return out
 
 
 def unstack(stacked: Dict, r: int) -> Dict:

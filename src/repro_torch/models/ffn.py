@@ -18,12 +18,13 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import operators as ops
 from repro_torch.kernels import ops as kops
-from repro_torch.models.common import dense_init, ones_table, pre_norm
+from repro_torch.models.common import Dense, ones_table, pre_norm
 
 
-def init_mlp(cfg: ArchConfig, dtype, generator, device) -> Dict:
+def init_mlp(cfg: ArchConfig, dtype, device) -> Dict:
+    """One layer's leaves for ``common.stack_init``."""
     d, f = cfg.d_model, cfg.d_ff
-    init = partial(dense_init, dtype=dtype, generator=generator, device=device)
+    init = partial(Dense, dtype=dtype)
     p = {
         "wu": init((d, f)),
         "wd": init((f, d)),

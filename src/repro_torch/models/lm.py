@@ -50,6 +50,17 @@ def init_model(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
     return params
 
 
+def param_bytes(cfg: ArchConfig, dtype=None) -> int:
+    """Bytes of :func:`init_model`'s tree for ``cfg``, counted from the
+    leaves' shapes without allocating them."""
+    _check_frontend(cfg)
+    dtype = dtype or dtype_of(cfg)
+    tables = 1 if cfg.tie_embeddings else 2
+    return (tables * cfg.vocab_size * cfg.d_model * dtype.itemsize
+            + cfg.elastic.num_subnets * cfg.d_model * 4
+            + bb.param_bytes(cfg, dtype))
+
+
 def _to_torch(a, device) -> torch.Tensor:
     arr = np.asarray(a)
     if arr.dtype.name == "bfloat16":      # ml_dtypes bf16 from a JAX tree

@@ -609,6 +609,113 @@ def test_sliced_matmul_kernel_refuses_short_scratch(cuda):
     torch.testing.assert_close(y.float(), torch.full_like(y.float(), 1536.0))
 
 
+# stacks of experts, (E, C, K, N, active_in, active_out): mixtral's gate/up
+# and down at a decode step and a prefill, llama4's at a decode step, at
+# the half width; few experts with ragged tiles (K splits); no live column
+GROUPED_CASES = [(8, 8, 4096, 14336, None, 7168), (8, 8, 14336, 4096, 7168, None),
+                 (8, 40, 4096, 14336, None, 10752),
+                 (128, 8, 5120, 8192, None, 4096), (128, 8, 8192, 5120, 4096, None),
+                 (3, 7, 264, 136, 9, 1), (2, 65, 128, 256, 128, 0)]
+
+
+@pytest.mark.parametrize("E,C,K,N,ai,ao", GROUPED_CASES)
+def test_grouped_sliced_matmul_matches_plain(cuda, E, C, K, N, ai, ao):
+    """One launch for all experts against the plain version, columns past
+    active_out exactly 0, two launches bitwise equal, one device kernel."""
+    gen = torch.Generator(device=cuda).manual_seed(E + C + K)
+    x, w = _randn(gen, E, C, K, dev=cuda), _randn(gen, E, K, N, dev=cuda)
+    a = None if ai is None else _i32(ai, cuda)
+    b = None if ao is None else _i32(ao, cuda)
+    got = sm.sliced_matmul(x, w, a, b)
+    assert got.shape == (E, C, N)
+    torch.testing.assert_close(
+        got.float(), sm.sliced_matmul_plain(x, w, a, b).float(), **TOL)
+    if ao is not None:
+        assert not got[..., ao:].any()
+    assert torch.equal(got, sm.sliced_matmul(x, w, a, b))
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        sm.sliced_matmul(x, w, a, b)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1 and "sliced_matmul_kernel" in kernels[0]
+
+
+def test_grouped_sliced_matmul_of_one_expert_is_the_2d_kernel(cuda):
+    """A stack of one gives the 2-d kernel's bits, whatever the widths."""
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    for M, K, N, ai, ao in ((8, 4096, 14336, None, 7168),
+                            (128, 1536, 1536, 384, None), (7, 264, 136, 9, 1)):
+        x, w = _randn(gen, M, K, dev=cuda), _randn(gen, K, N, dev=cuda)
+        a = None if ai is None else _i32(ai, cuda)
+        b = None if ao is None else _i32(ao, cuda)
+        assert torch.equal(sm.sliced_matmul(x[None], w[None], a, b)[0],
+                           sm.sliced_matmul(x, w, a, b))
+
+
+def test_grouped_sliced_matmul_repeats_its_bits(cuda):
+    """The same widths give the same bits, launch after launch, whatever
+    widths the launches between used."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    x, w = _randn(gen, 8, 40, 4096, dev=cuda), _randn(gen, 8, 4096, 1024,
+                                                      dev=cuda)
+    ao = _i32(1024, cuda)
+    first = sm.sliced_matmul(x, w, None, ao)
+    for width in (512, 8, 1024):
+        ao.fill_(width)
+        sm.sliced_matmul(x, w, None, ao)
+    assert torch.equal(first, sm.sliced_matmul(x, w, None, ao))
+
+
+def test_grouped_sliced_matmul_refuses_short_scratch(cuda):
+    """A stack's launch takes the scratch of its row count, as a 2-d one
+    does, and is refused with less, before anything runs."""
+    grid = sm.grid_size(cuda)
+    x = torch.ones((8, 8, 512), dtype=torch.bfloat16, device=cuda)
+    w = torch.ones((8, 512, 256), dtype=torch.bfloat16, device=cuda)
+    elems, counters = sm._workspace_size(8, grid)
+    y = torch.full((8, 8, 256), 7.0, dtype=torch.bfloat16, device=cuda)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    for n_part, n_count in ((elems - 1, counters), (elems, counters - 1)):
+        part = torch.empty(n_part, dtype=torch.float32, device=cuda)
+        cnt = torch.zeros(n_count, dtype=torch.int32, device=cuda)
+        assert sm._launch(x, w, y, 1, None, 512, None, 256, part, cnt,
+                          grid, stream) != 0
+    torch.cuda.synchronize()
+    assert (y == 7.0).all()
+    part = torch.empty(elems, dtype=torch.float32, device=cuda)
+    cnt = torch.zeros(counters, dtype=torch.int32, device=cuda)
+    assert sm._launch(x, w, y, 1, None, 512, None, 256, part, cnt,
+                      grid, stream) == 0
+    torch.testing.assert_close(y.float(), torch.full_like(y.float(), 512.0))
+
+
+def test_moe_switch_block_on_card_matches_mask(cuda):
+    """A reduced mixtral layer (experts of d_ff 512, bf16 on the card):
+    switch mode, through the grouped kernel, against mask mode on the same
+    inputs (the same routing: one norm, one fp32 router product), for
+    every subnet."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import operators as ops
+    from repro_torch.core import subnet as sn
+    from repro_torch.models import moe
+    from repro_torch.models.common import stack_init
+    cfg = get_config("mixtral-8x7b").reduced().replace(
+        moe_d_ff=512, dtype="bfloat16", d_model=256)
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    p = {k: v[0] for k, v in stack_init(
+        lambda: moe.init_moe(cfg, torch.bfloat16, cuda), 1, gen, cuda).items()}
+    x = _randn(gen, 2, 16, cfg.d_model, dev=cuda)
+    for sub in sn.enumerate_space(cfg):
+        ctrl = ops.device_control(sn.make_control(cfg, sub), cuda)
+        got = moe.moe_block(p, cfg, x, ctrl, slice_mode="switch").float()
+        want = moe.moe_block(p, cfg, x, ctrl, slice_mode="mask").float()
+        torch.testing.assert_close(got, want, atol=2e-2 * want.abs().max(),
+                                   rtol=2e-2)
+
+
 def test_switch_prefill_makes_no_host_sync(cuda):
     """A warmed switch-mode forward reads every width on the card: under
     sync-debug "error" any host sync (a width read back, .item(), a copy

@@ -86,7 +86,20 @@ Phases, one result line each:
    (each a near-tie within bf16's reach), each block against its switch
    twin, the trace with a MoE layer's dispatch kernels and the step's
    bytes bound, and for mixtral the 2-layer reference, its CPU walk
-   routed as the card's.
+   routed as the card's. The switch walks are held to the oracle per
+   walk where their routing equals the mask walk's, and on the mean of
+   every walk within ``MOE_MEAN_MARGIN``.
+10. SSM: zamba2-2.7b (54 Mamba2 units and the weight-shared attention +
+   MLP block after every 6th, head_dim 80 over 32 heads) and xlstm-125m
+   (3 units of mLSTM x 3 + sLSTM) at their published widths and full
+   depth, in turn, as phase 8 runs a dense config: serve 32 queries in
+   mask and in switch mode (zamba2's shared block through flash, decode
+   and, in switch mode, ``sliced_matmul``), switch against mask and both
+   against the fp32 oracle (xlstm slices nothing: its switch logits equal
+   its mask logits bit for bit), the shared block's attention and MLP
+   against their switch twins, the trace with one Mamba2, mLSTM and sLSTM
+   layer alone, and the reference of a cut on the CPU: zamba2 at 6 units
+   (one shared invocation), xlstm at 1 unit.
 
 Each phase prints its seconds. Then one JSON line with every kernel's
 numbers (the attention kernels' also at each head_dim of phase 8), and
@@ -1135,56 +1148,80 @@ def trace_steps(torch, steps, symbols=PORT_KERNEL_SYMBOLS, n: int = 10):
     return report
 
 
-def two_layer_cut(torch, name: str, seed: int):
-    """The full-width ``name`` cut to 2 repeat units of its pattern: (cfg,
-    bf16 parameters on the card from a seeded generator, the fp32 config,
-    the same parameters in fp32 on the CPU)."""
+def depth_cut(torch, name: str, seed: int, units: int = 2):
+    """The full-width ``name`` cut to ``units`` repeat units of its pattern:
+    (cfg, bf16 parameters on the card from a seeded generator, the fp32
+    config, the same parameters in fp32 on the CPU)."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import Stage
     from repro_torch.models import lm
     cfg = get_config(name)
-    cfg = cfg.replace(stages=(Stage(cfg.stages[0].pattern, repeat=2),))
+    cfg = cfg.replace(stages=(Stage(cfg.stages[0].pattern, repeat=units),))
     gpu = lm.init_model(cfg, torch.Generator(device="cuda").manual_seed(seed),
                         "cuda")
-
-    def to_cpu(t):
-        if isinstance(t, dict):
-            return {k: to_cpu(v) for k, v in t.items()}
-        if isinstance(t, list):
-            return [to_cpu(v) for v in t]
-        return t.float().cpu()
-
-    return cfg, gpu, cfg.replace(dtype="float32"), to_cpu(gpu)
+    return cfg, gpu, cfg.replace(dtype="float32"), to_cpu(gpu, torch.float32)
 
 
-def reference_check(torch, cut, tag: str = "reference"):
+def to_cpu(tree, dtype=None):
+    """A parameter tree's leaves on the CPU, cast to ``dtype`` if given."""
+    if isinstance(tree, dict):
+        return {k: to_cpu(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_cpu(v, dtype) for v in tree]
+    return tree.cpu() if dtype is None else tree.to(dtype).cpu()
+
+
+def reference_check(torch, cut, tag: str = "reference",
+                    blockwise: bool = False):
     """Kernels (bf16, card) against the plain path (fp32, CPU) on a
-    2-layer ``cut`` (:func:`two_layer_cut`): prefill logits (B=2, S=16) and
-    4 decode steps, for the first and the last Pareto subnet, in mask and
-    in switch mode, within 2e-2 of max |logit|. A MoE block of the CPU
-    walk routes as the card's walk did (:class:`Routes`), and the tokens
-    whose own top-k differs are held to :func:`route_flips`. Returns the
-    worst relative error of each mode and the routing flips."""
+    ``cut`` of a few units (:func:`depth_cut`): prefill logits (B=2, S=16)
+    and 4 decode steps, for the first and the last Pareto subnet, in mask
+    and in switch mode, within 2e-2 of max |logit|. With ``blockwise``
+    (the SSM family: its random-weight blocks amplify bf16 rounding, so
+    that the plain path's own bf16 walk strays past 2e-2 of the fp32 walk
+    at one unit; PERF.md) every block of the card's walks is held to the
+    plain fp32 block on its own inputs instead (:class:`BlockReference`),
+    and the logits are reported beside the plain path's own bf16 walk on
+    the CPU. A MoE block of the CPU walk routes as the card's walk did
+    (:class:`Routes`), and the tokens whose own top-k differs are held to
+    :func:`route_flips`. Returns the worst relative error of each mode,
+    the worst of the CPU's bf16 walk and the blocks (``blockwise``) and
+    the routing flips."""
+    import contextlib
     import numpy as np
     from repro_torch.core import subnet as sn
     from repro_torch.core.pareto import pareto_subnets
     from repro_torch.models import lm
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg, gpu, cfg32, cpu = cut
+    cpu16 = to_cpu(gpu) if blockwise else None
+    blocks = BlockReference(tag) if blockwise else None
     rng = np.random.default_rng(3)
     toks = rng.integers(0, cfg.vocab_size, (2, 16)).astype(np.int32)
     pts = pareto_subnets(cfg)
     worst = {"mask": 0.0, "switch": 0.0}
+    floor = {"mask": 0.0, "switch": 0.0}
     flips = []
 
     def both(on_card, on_cpu):
         """The card's walk, then the CPU's routed as the card's was."""
-        with Routes() as rec:
+        with Routes() as rec, (blocks or contextlib.nullcontext()):
             got = on_card()
         with Routes(replay=rec.calls) as rep:
             want = on_cpu()
         flips.extend(rep.flips)
         return got, want
+
+    def check(got, want, want16, mode, what):
+        scale = want.abs().max().item()
+        err = (got - want).abs().max().item() / scale
+        worst[mode] = max(worst[mode], err)
+        if want16 is None:
+            if not torch.allclose(got, want, atol=2e-2 * scale, rtol=2e-2):
+                fail(f"{tag} {mode}: {what} off by {err} (relative)")
+            return
+        err16 = (want16.float() - want).abs().max().item() / scale
+        floor[mode] = max(floor[mode], err16)
 
     with torch.no_grad():
         for mode, p in itertools.product(worst, (pts[0], pts[-1])):
@@ -1194,14 +1231,13 @@ def reference_check(torch, cut, tag: str = "reference"):
                                    slice_mode=mode).float().cpu(),
                 lambda: lm.forward(cpu, cfg32, {"tokens": toks}, ctrl,
                                    slice_mode=mode))
-            scale = want.abs().max().item()
-            err = (got - want).abs().max().item() / scale
-            worst[mode] = max(worst[mode], err)
-            if not torch.allclose(got, want, atol=2e-2 * scale, rtol=2e-2):
-                fail(f"{tag} {mode}: prefill logits off by {err} "
-                     f"(relative)")
+            want16 = None if cpu16 is None else lm.forward(
+                cpu16, cfg, {"tokens": toks}, ctrl, slice_mode=mode)
+            check(got, want, want16, mode, "prefill logits")
             cg = lm.init_cache(cfg, 2, 16, device="cuda")
             cc = lm.init_cache(cfg32, 2, 16, device="cpu")
+            c16 = None if cpu16 is None else lm.init_cache(cfg, 2, 16,
+                                                           device="cpu")
             for i in range(4):
                 tk = toks[:, i:i + 1]
                 (lg, cg), (lc, cc) = both(
@@ -1209,20 +1245,23 @@ def reference_check(torch, cut, tag: str = "reference"):
                                            slice_mode=mode),
                     lambda: lm.decode_step(cpu, cfg32, tk, ctrl, cc, i,
                                            slice_mode=mode))
-                lg = lg.float().cpu()
-                scale = lc.abs().max().item()
-                err = (lg - lc).abs().max().item() / scale
-                worst[mode] = max(worst[mode], err)
-                if not torch.allclose(lg, lc, atol=2e-2 * scale, rtol=2e-2):
-                    fail(f"{tag} {mode}: decode step {i} off by {err}")
-    return dict(worst, routing=flip_summary(flips))
+                l16 = None
+                if cpu16 is not None:
+                    l16, c16 = lm.decode_step(cpu16, cfg, tk, ctrl, c16, i,
+                                              slice_mode=mode)
+                check(lg.float().cpu(), lc, l16, mode, f"decode step {i}")
+    if blocks is None:
+        return dict(worst, routing=flip_summary(flips))
+    return dict(worst, routing=flip_summary(flips), bf16_floor=floor,
+                blocks=blocks.blocks, blocks_worst=blocks.worst_by_kind,
+                blocks_bf16=blocks.bf16_by_kind)
 
 
 def phase_reference(torch):
     """Full width, 2 layers: kernels (bf16, card) vs plain (fp32, CPU), in
     mask and in switch mode."""
     from repro_torch.core.pareto import pareto_subnets
-    cut = two_layer_cut(torch, "qwen2-1.5b", seed=2)
+    cut = depth_cut(torch, "qwen2-1.5b", seed=2)
     worst = reference_check(torch, cut)
     cfg = cut[0]
     say("reference", layers=2, d_model=cfg.d_model, vocab=cfg.vocab_size,
@@ -1239,6 +1278,10 @@ CONFIGS = ("stablelm-3b", "h2o-danube-3-4b", "qwen2.5-14b")
 # bf16 weights, 16 hold 47; one of llama4's 24 units (attn, moe, attn,
 # mlp) holds 37 GB, 32 of them its 128 experts
 MOE_CONFIGS = (("mixtral-8x7b", 16), ("llama4-maverick-400b-a17b", 1))
+# (config, units of its reference cut): zamba2's shared block runs after
+# every 6th unit, so its cut keeps 6 units (one invocation at full depth);
+# one xlstm unit is mLSTM x 3 + sLSTM
+SSM_CONFIGS = (("zamba2-2.7b", 6), ("xlstm-125m", 1))
 
 
 def rel_err(got, want, what, tol: float = 2e-2) -> float:
@@ -1280,6 +1323,19 @@ def phase_moe(torch, card):
     return launches
 
 
+def phase_ssm(torch, card):
+    """Phase 10: zamba2-2.7b and xlstm-125m at their published widths and
+    full depth, as phase 8 runs a dense config; each reference on a cut
+    deep enough to hold every kind of block (``SSM_CONFIGS``). Returns the
+    kernel launches of each driven path."""
+    launches = []
+    for name, cut in SSM_CONFIGS:
+        t0 = time.perf_counter()
+        launches += config_run(torch, card, name, cut_units=cut)
+        say("config-seconds", arch=name, seconds=time.perf_counter() - t0)
+    return launches
+
+
 def stage_peak_gb(torch) -> float:
     """The most device memory tensors held since the last call (GB)."""
     peak = torch.cuda.max_memory_allocated() / 1e9
@@ -1293,24 +1349,32 @@ def _free(torch):
     torch.cuda.empty_cache()
 
 
-def config_run(torch, card, name: str, units=None, reference: bool = True):
+def config_run(torch, card, name: str, units=None, reference: bool = True,
+               cut_units: int = 2):
     """(a) serve 32 queries with SlackFit in mask and in switch mode
-    (``--units`` when given): every query answered, no build, flash, the
-    norm (an RMSNorm config) and in switch mode ``sliced_matmul`` (for a
-    MoE config its grouped form too) launched; (b) switch against mask
+    (``--units`` when given): every query answered, no build, flash (a
+    config with attention), the norm (an RMSNorm config) and in switch mode
+    ``sliced_matmul`` (a config with a block that slices; for a MoE config
+    its grouped form too) launched; (b) switch against mask
     through the executor over the prefills (B=8, S=16) of every Pareto
     subnet and 8 greedy decode steps of the smallest and the largest,
     each held against the fp32 oracle (:func:`fp32_oracle`), which for a
     MoE config routes as the walk it checks did (:class:`Routes`, the
     tokens of its own other top-k held to :func:`route_flips`): the switch
     logits no further from it than the mask logits plus
-    ``SWITCH_MARGIN``, decode and ``sliced_matmul`` launched; then every
+    ``SWITCH_MARGIN`` per walk (for a MoE config: the walks whose routing
+    equals the mask walk's, and the mean over every walk within
+    ``MOE_MEAN_MARGIN``; for an SSM config the mean within
+    ``SSM_MEAN_MARGIN``), or equal to the mask logits bit for bit where
+    nothing slices; decode and ``sliced_matmul`` launched; then every
     block of the same mask walks against its switch twin
     (:class:`BlockShadow`), the number of blocks compared checked; (e)
     the trace of a warmed mask prefill and decode step at B=8, with a MoE
-    layer's dispatch kernels and the step's bytes bound; (c) with
-    ``reference``, the 2-layer reference in both modes; (d) for a dense
-    config with a sliding window, a prefill past the window and decode
+    layer's dispatch kernels, one layer of each recurrent kind alone
+    (Mamba2, mLSTM, sLSTM) and the step's bytes bound; (c) with
+    ``reference``, the reference of a ``cut_units`` cut in both modes (an
+    SSM config's block by block); (d) for a dense config with a sliding
+    window, a prefill past the window and decode
     steps that wrap the rolling cache against the plain path on the CPU.
     Returns the launches of the two serve runs and of the executor's walks
     in (b)."""
@@ -1325,6 +1389,14 @@ def config_run(torch, card, name: str, units=None, reference: bool = True):
     cfg = serve.cut_units(get_config(name), units)
     rms = cfg.norm == "rmsnorm"
     moe = cfg.family == "moe"
+    kinds = {k for stage in cfg.stages for k in stage.pattern}
+    attn = "attn" in kinds or cfg.shared_attn_period > 0
+    # a block that switch mode slices: attention (its wo), an MLP or MoE
+    sliced = attn or bool(kinds & {"mlp", "moe"})
+    # the SSM family: its random-weight walks amplify bf16 rounding far
+    # past the dense configs' (PERF.md)
+    ssm = bool(kinds & {"mamba", "mlstm", "slstm"})
+    per_walk = not (moe or ssm)
     depth = ["--units", str(units)] if units else []
     secs, peak_gb = {}, {}
     torch.cuda.reset_peak_memory_stats()
@@ -1351,9 +1423,10 @@ def config_run(torch, card, name: str, units=None, reference: bool = True):
         if out["serve_phase_builds"] != 0:
             fail(f"{name} {mode}: serve phase built "
                  f"{out['serve_phase_builds']} kernels")
-        for kernel in ("flash_attention",) \
+        for kernel in (("flash_attention",) if attn else ()) \
                 + (("subnet_rmsnorm",) if rms else ()) \
-                + (("sliced_matmul",) if mode == "switch" else ()) \
+                + (("sliced_matmul",) if mode == "switch" and sliced
+                   else ()) \
                 + ((GROUPED,) if mode == "switch" and moe else ()):
             if out["kernel_launches"].get(kernel, 0) <= 0:
                 fail(f"{name}: {kernel} never launched while serving in "
@@ -1400,10 +1473,32 @@ def config_run(torch, card, name: str, units=None, reference: bool = True):
             seq.append(want.argmax(-1).astype(np.int32)[:, None])
         decoded[i] = (np.concatenate(seq[:steps], 1), got_m, got_s)
     parity_launches = compat.launch_counts()
-    for kernel in ("flash_attention", "decode_attention", "sliced_matmul") \
+    for kernel in (("flash_attention", "decode_attention") if attn else ()) \
+            + (("sliced_matmul",) if sliced else ()) \
             + (("subnet_rmsnorm",) if rms else ()) + ((GROUPED,) if moe else ()):
         if parity_launches.get(kernel, 0) <= 0:
             fail(f"{name}: {kernel} never launched in switch against mask")
+    if not sliced:
+        # nothing slices in switch mode, so both executors run the same
+        # operations: the same bits
+        pairs = [(sw, mk, f"prefill subnet {i}") for i, ((mk, _), (sw, _))
+                 in enumerate(zip(masked, switched))]
+        pairs += [(decoded[i][2][j][0], decoded[i][1][j][0],
+                   f"decode {i} step {j}") for i in ends
+                  for j in range(steps)]
+        for sw, mk, what in pairs:
+            if not np.array_equal(sw, mk):
+                fail(f"{name}: switch {what} differs from mask, with "
+                     f"nothing to slice")
+    # which walks' MoE dispatches went exactly as their mask twins' (a
+    # decode step's, with every step before it)
+    alike = [same_routes(mr, sr) for (_, mr), (_, sr) in zip(masked,
+                                                             switched)]
+    for i in ends:
+        flag = True
+        for (_, rm), (_, rs) in zip(decoded[i][1], decoded[i][2]):
+            flag = flag and same_routes(rm, rs)
+            alike.append(flag)
     flips = []
 
     def oracle(tokens, ctrl, routes):
@@ -1421,7 +1516,7 @@ def config_run(torch, card, name: str, units=None, reference: bool = True):
                                   ("switch_vs_fp32", sw, ref_s))}
         for key, e in errs.items():
             logits[key].append(e)
-        if not moe and not errs["switch_vs_fp32"] <= errs["mask_vs_fp32"] \
+        if per_walk and not errs["switch_vs_fp32"] <= errs["mask_vs_fp32"] \
                 + SWITCH_MARGIN:
             fail(f"{name}: switch prefill of subnet {i} is "
                  f"{errs['switch_vs_fp32']} of max|logit| off the fp32 "
@@ -1444,20 +1539,35 @@ def config_run(torch, card, name: str, units=None, reference: bool = True):
                         ("switch_vs_fp32", got_s[j][0], ref_s[:, j]))}
             for key, e in errs.items():
                 decode_errs[key].append(e)
-            if not moe and not errs["switch_vs_fp32"] \
+            if per_walk and not errs["switch_vs_fp32"] \
                     <= errs["mask_vs_fp32"] + SWITCH_MARGIN:
                 fail(f"{name}: switch decode {i} step {j} is "
                      f"{errs['switch_vs_fp32']} of max|logit| off the fp32 "
                      f"oracle, mask {errs['mask_vs_fp32']}")
     # a MoE walk at these widths strays from the oracle by bf16 noise
     # whose difference between the modes, walk by walk, has a std of about
-    # 0.004 (PERF.md, PR 20): there the means over every walk are held
+    # 0.004 (PERF.md), and a token routed otherwise than in the mask walk
+    # moves its logits further: the walks routed alike are held one by
+    # one, and the mean over every walk to a few of its standard errors
     gaps = [a - b for d in (logits, decode_errs)
             for a, b in zip(d["switch_vs_fp32"], d["mask_vs_fp32"])]
-    if moe and not sum(gaps) / len(gaps) <= SWITCH_MARGIN:
-        fail(f"{name}: the switch walks are {sum(gaps) / len(gaps)} of "
-             f"max|logit| further from the fp32 oracle than the mask walks, "
-             f"on average over {len(gaps)}")
+    mean_gap = sum(gaps) / len(gaps)
+    alike_gaps = [g for g, a in zip(gaps, alike) if a]
+    if moe and not mean_gap <= MOE_MEAN_MARGIN:
+        fail(f"{name}: the switch walks are {mean_gap} of max|logit| "
+             f"further from the fp32 oracle than the mask walks, on "
+             f"average over {len(gaps)}")
+    if moe and not max(alike_gaps, default=0.0) <= SWITCH_MARGIN:
+        fail(f"{name}: a switch walk routed as its mask walk is "
+             f"{max(alike_gaps)} of max|logit| further from the fp32 "
+             f"oracle than the mask walk")
+    # an SSM walk strays 0.2-0.5 from the oracle at full depth, and two
+    # walks that round one block differently part by up to 0.09: the mean
+    # of the gaps is held (each block has its twin below)
+    if ssm and not mean_gap <= SSM_MEAN_MARGIN:
+        fail(f"{name}: the switch walks are {mean_gap} of max|logit| "
+             f"further from the fp32 oracle than the mask walks, on "
+             f"average over {len(gaps)}")
     seqs = {i: decoded[i][0] for i in ends}
     del masked, switched, decoded, ref_m, ref_s
     # the same mask walks again, each block against its switch twin; the
@@ -1482,13 +1592,15 @@ def config_run(torch, card, name: str, units=None, reference: bool = True):
     cache = mask.init_cache(8, 16)
     trace = trace_steps(torch, {
         "prefill": lambda: mask.prefill(idx, tt),
-        "decode": lambda: mask.decode_step(idx, tt[:, :1], cache, 3)})
+        "decode": lambda: mask.decode_step(idx, tt[:, :1], cache, 3)},
+        n=CONFIG_TRACE_STEPS)
     # the bytes bound of a step of the largest subnet: every weight of the
     # walk and the head read once (mask mode reads every expert), the
     # embedding's rows and the activations left out
     step_bytes = lm.param_bytes(cfg) - cfg.vocab_size * cfg.d_model * 2
     for kind in trace:
         trace[kind]["bytes_bound_ms"] = step_bytes / card.bw * 1e3
+    trace.update(layer_trace(torch, params, cfg, mask.ctrls[idx], kinds))
     if moe:
         trace["moe_dispatch"] = dispatch_trace(torch, mask, idx, tt)
         # switch mode over the same weights: the widest subnet and the one
@@ -1504,7 +1616,8 @@ def config_run(torch, card, name: str, units=None, reference: bool = True):
         sw.warmup(batches=(8,), seqs=(16,))
         trace.update(trace_steps(torch, {
             "switch_prefill_widest": lambda: sw.prefill(0, tt),
-            "switch_prefill_half_ffn": lambda: sw.prefill(1, tt)}))
+            "switch_prefill_half_ffn": lambda: sw.prefill(1, tt)},
+            n=CONFIG_TRACE_STEPS))
         del sw
     secs["trace"] = time.perf_counter() - t0
     peak_gb["trace"] = stage_peak_gb(torch)
@@ -1515,8 +1628,9 @@ def config_run(torch, card, name: str, units=None, reference: bool = True):
     worst, window = {}, None
     if reference:
         t0 = time.perf_counter()
-        cut = two_layer_cut(torch, name, seed=2)
-        worst = reference_check(torch, cut, tag=f"{name} reference")
+        cut = depth_cut(torch, name, seed=2, units=cut_units)
+        worst = reference_check(torch, cut, tag=f"{name} reference",
+                                blockwise=ssm)
         secs["reference"] = time.perf_counter() - t0
         peak_gb["reference"] = stage_peak_gb(torch)
         if cfg.sliding_window and not moe:
@@ -1535,6 +1649,7 @@ def config_run(torch, card, name: str, units=None, reference: bool = True):
         norm=cfg.norm, window=cfg.sliding_window, parameters=n_params,
         experts=[cfg.n_experts, cfg.top_k, cfg.resolved_moe_d_ff] if moe
         else None,
+        kinds=sorted(kinds), shared_attn_period=cfg.shared_attn_period,
         peak_device_gb=peak_gb,
         left_allocated_gb=torch.cuda.memory_allocated() / 1e9,
         serve={mode: {k: out[k] for k in serve_keys}
@@ -1542,19 +1657,28 @@ def config_run(torch, card, name: str, units=None, reference: bool = True):
         subnets=n_sub, switch_margin=SWITCH_MARGIN,
         prefill_logits_rel_errs=logits,
         prefill_logits_max_rel_err={k: max(v) for k, v in logits.items()},
+        decode_logits_rel_errs=decode_errs,
         decode_logits_max_rel_err={k: max(v) for k, v in decode_errs.items()},
-        switch_minus_mask_vs_fp32=dict(mean=sum(gaps) / len(gaps),
-                                       max=max(gaps), min=min(gaps),
-                                       walks=len(gaps)),
+        switch_minus_mask_vs_fp32=dict(
+            mean=mean_gap, max=max(gaps), min=min(gaps), walks=len(gaps),
+            mean_bound=(MOE_MEAN_MARGIN if moe else SSM_MEAN_MARGIN if ssm
+                        else None),
+            routed_alike=dict(walks=len(alike_gaps),
+                              max=max(alike_gaps, default=None))),
         oracle_routing=flip_summary(flips) if moe else None,
         blocks_compared=shadow.blocks,
         switch_block_max_rel_err=shadow.worst,
         switch_block_max_rel_err_by_kind=shadow.worst_by_kind,
         block_tol="2e-2 of max|block output|",
         parity_launches=parity_launches,
+        reference_units=cut_units if reference else None,
         reference_max_rel_err=worst.get("mask"),
         reference_switch_max_rel_err=worst.get("switch"),
         reference_routing=worst.get("routing") if moe else None,
+        reference_cpu_bf16_max_rel_err=worst.get("bf16_floor"),
+        reference_blocks=worst.get("blocks"),
+        reference_block_max_rel_err_by_kind=worst.get("blocks_worst"),
+        reference_block_cpu_bf16_max_rel_err_by_kind=worst.get("blocks_bf16"),
         window_check=window, seconds=secs, trace=trace)
     return serve_launches + [parity_launches]
 
@@ -1564,6 +1688,16 @@ def config_run(torch, card, name: str, units=None, reference: bool = True):
 # two modes round differently in bf16 and both stray about 0.02 from the
 # oracle at depth 24-48, but within 0.003 of each other's distance to it
 SWITCH_MARGIN = 0.005
+# the bound on the mean of that difference over every walk of a MoE
+# config: about three standard errors of its walk-to-walk spread (0.004
+# over 40 walks)
+MOE_MEAN_MARGIN = 0.002
+# the same for an SSM config, where nothing routes: about three standard
+# errors of zamba2's walk-to-walk spread (0.011 over 22 walks)
+SSM_MEAN_MARGIN = 0.007
+# steps a trace of phases 8-10 times and profiles (phase 6: 10); each
+# profiled step of a 54-unit model holds about 4,000 device kernels
+CONFIG_TRACE_STEPS = 5
 # the grouped sliced_matmul's launch count (kernels/sliced_matmul.py)
 GROUPED = "sliced_matmul.experts"
 
@@ -1572,19 +1706,29 @@ def shadow_blocks(cfg, ctrls, ends, steps: int) -> int:
     """The blocks that :class:`BlockShadow` compares over the mask-mode
     prefill of every control in ``ctrls`` and ``steps`` decode steps of
     the subnets ``ends``: every live attention, MLP and MoE block of a
-    prefill, every live MLP and MoE block of a decode step."""
+    prefill, every live MLP and MoE block of a decode step, and the
+    attention and MLP of each invocation of zamba2's shared block (its MLP
+    in decode). The recurrent kinds have no switch branch to compare."""
     import numpy as np
+    period = cfg.shared_attn_period
+    shared_mlp = int(bool(period and cfg.d_ff))
 
-    def live(ctrl, kinds):
+    def live(ctrl, kinds, shared):
         gates, offset, n = np.asarray(ctrl["layer_gate"], bool), 0, 0
         for stage in cfg.stages:
             per = sum(k in kinds for k in stage.pattern)
-            n += per * int(gates[offset:offset + stage.repeat].sum())
+            on = gates[offset:offset + stage.repeat]
+            n += per * int(on.sum())
+            if period:
+                n += shared * sum(int(on[r]) for r in range(stage.repeat)
+                                  if r % period == period - 1)
             offset += stage.repeat
         return n
 
-    return (sum(live(c, ("attn", "mlp", "moe")) for c in ctrls)
-            + steps * sum(live(ctrls[i], ("mlp", "moe")) for i in ends))
+    return (sum(live(c, ("attn", "mlp", "moe"), 1 + shared_mlp)
+                for c in ctrls)
+            + steps * sum(live(ctrls[i], ("mlp", "moe"), shared_mlp)
+                          for i in ends))
 
 
 class BlockShadow:
@@ -1655,6 +1799,112 @@ class BlockShadow:
                  f"mask twin by {err} of max|output|")
 
 
+class BlockReference:
+    """While active, every block that a walk runs on the card (attention,
+    MLP, Mamba2, mLSTM and sLSTM, prefill and decode, zamba2's shared block
+    included) also runs as the plain path on the CPU on the same inputs
+    (the card's x, pending delta and decode cache, the layer's weights):
+    once in fp32, all upcast, and once in the card's bf16. Each of the
+    block's outputs (the residual ``s``, the output ``y``, every leaf of
+    the cache it updated) may be no further from the fp32 block than the
+    CPU's bf16 block is, plus ``tol``, both in max |fp32|. A block is
+    compared on its own, so the walk's amplification of bf16 rounding does
+    not enter; the bf16 block stands for what bf16 alone costs a block
+    whose contractions cancel (a Mamba2 decode step's ``C . state``). The
+    walk's code is untouched: the block functions are wrapped where the
+    backbone looks them up."""
+
+    BLOCKS = (("attention", "attention_block_pending"),
+              ("attention", "attention_decode_pending"),
+              ("ffn", "mlp_block_pending"),
+              ("ssm", "mamba_block_pending"),
+              ("ssm", "mamba_decode_pending"),
+              ("xlstm", "mlstm_block_pending"),
+              ("xlstm", "mlstm_decode_pending"),
+              ("xlstm", "slstm_block_pending"),
+              ("xlstm", "slstm_decode_pending"))
+
+    def __init__(self, name: str, tol: float = 2e-2):
+        self.name, self.tol = name, tol
+        self.blocks, self.worst_by_kind, self.bf16_by_kind = 0, {}, {}
+        self._weights = {}
+
+    def __enter__(self):
+        import importlib
+        self._orig = []
+        for mod_name, fn in self.BLOCKS:
+            mod = importlib.import_module(f"repro_torch.models.{mod_name}")
+            orig = getattr(mod, fn)
+            self._orig.append((mod, fn, orig))
+            setattr(mod, fn, self._wrap(orig, fn.replace("_pending", "")))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, fn, orig in self._orig:
+            setattr(mod, fn, orig)
+        return False
+
+    def _cpu(self, t, upcast: bool, weights: bool = False):
+        """``t`` (a tensor, or a dict or tuple of them) copied to the CPU,
+        floating tensors in fp32 if ``upcast``; a layer's weights are
+        copied once."""
+        import torch
+        if isinstance(t, dict):
+            return {k: self._cpu(v, upcast, weights) for k, v in t.items()}
+        if isinstance(t, tuple):
+            return tuple(self._cpu(v, upcast, weights) for v in t)
+        if not isinstance(t, torch.Tensor):
+            return t
+        key = (t.data_ptr(), tuple(t.shape), t.dtype, upcast)
+        if weights and key in self._weights:
+            return self._weights[key]
+        out = t.detach().cpu().clone()
+        if upcast and out.is_floating_point():
+            out = out.float()
+        if weights:
+            self._weights[key] = out
+        return out
+
+    def _wrap(self, block, kind):
+        def run(p, cfg, x, delta, ctrl, *args, **kw):
+            if x.device.type != "cuda":
+                return block(p, cfg, x, delta, ctrl, *args, **kw)
+            plain = {}
+            for upcast in (True, False):
+                plain[upcast] = [self._cpu(t, upcast)
+                                 for t in (x, delta, ctrl, args)]
+            s, y = block(p, cfg, x, delta, ctrl, *args, **kw)
+            outs = {}
+            for upcast, (xc, dc, cc, ac) in plain.items():
+                outs[upcast] = block(
+                    self._cpu(p, upcast, weights=True),
+                    cfg.replace(dtype="float32") if upcast else cfg,
+                    xc, dc, cc, *ac, **kw) + tuple(
+                    a for a in ac if isinstance(a, dict))
+            card = (s, y) + tuple(a for a in args if isinstance(a, dict))
+            self.blocks += 1
+            for got, want, b16 in zip(card, outs[True], outs[False]):
+                if isinstance(got, dict):
+                    trios = [(k, got[k], want[k], b16[k]) for k in want]
+                else:
+                    trios = [("out", got, want, b16)]
+                for what, g, w, b in trios:
+                    scale = w.abs().max().clamp_min(1e-30)
+                    err = ((g.float().cpu() - w).abs().max() / scale).item()
+                    floor = ((b.float() - w).abs().max() / scale).item()
+                    self.worst_by_kind[kind] = max(
+                        self.worst_by_kind.get(kind, 0.0), err)
+                    self.bf16_by_kind[kind] = max(
+                        self.bf16_by_kind.get(kind, 0.0), floor)
+                    if not err <= floor + self.tol:
+                        fail(f"{self.name}: {kind} block {self.blocks} "
+                             f"({what}) off the plain fp32 block by {err} "
+                             f"of max|fp32|, the plain bf16 block by "
+                             f"{floor}")
+            return s, y
+        return run
+
+
 class Routes:
     """While active, each MoE dispatch of a walk is recorded, in walk
     order: per token, its router input ``h``, its fp32 ``logits``, its
@@ -1705,6 +1955,15 @@ class Routes:
         from repro_torch.models import moe as moe_mod
         moe_mod.dispatch, moe_mod.moe_block_pending = self._orig
         return False
+
+
+def same_routes(a, b) -> bool:
+    """Whether two walks' records (:class:`Routes`) sent every token of
+    every MoE layer to the same experts and kept the same slots."""
+    import torch
+    return len(a) == len(b) and all(
+        torch.equal(x["eids"], y["eids"]) and torch.equal(x["keep"], y["keep"])
+        for x, y in zip(a, b))
 
 
 def decode_routes(torch, steps):
@@ -1806,15 +2065,22 @@ def fp32_oracle(torch, params, cfg, toks, ctrl, routes=(), flips=None):
     """The mask-mode logits of ``toks`` at every position in fp32 on the
     card: each layer's weights upcast as the walk reaches it (the bf16
     tree stays as it is), the plain attention, the norm kernel's fp32
-    form, fp32 cuBLAS products with TF32 off. A MoE block routes as the
-    records ``routes`` say (one per live MoE layer, in walk order; see
-    :func:`oracle_moe`) and adds its routing flips to ``flips``. A numpy
-    (B, S, vocab) array."""
+    form, fp32 cuBLAS products with TF32 off; the Mamba2, mLSTM and sLSTM
+    blocks (fp32 inside already) on the upcast weights, and zamba2's
+    shared block after every live unit whose index in its stage ends a
+    period. A MoE block routes as the records ``routes`` say (one per
+    live MoE layer, in walk order; see :func:`oracle_moe`) and adds its
+    routing flips to ``flips``. A numpy (B, S, vocab) array."""
     from repro_torch.core import operators as ops
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import attention as attn_mod
     from repro_torch.models import ffn as ffn_mod
     from repro_torch.models import lm
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.models import xlstm as xlstm_mod
+    recurrent = {"mamba": ssm_mod.mamba_block_pending,
+                 "mlstm": xlstm_mod.mlstm_block_pending,
+                 "slstm": xlstm_mod.slstm_block_pending}
 
     def plain(q, k, v, **kw):
         return fa.flash_attention_plain(q, k, v, **kw)
@@ -1824,6 +2090,10 @@ def fp32_oracle(torch, params, cfg, toks, ctrl, routes=(), flips=None):
     dev = params["embed"].device
     ctrl = ops.device_control(ctrl, dev)
     routes = list(routes)
+    period = cfg.shared_attn_period
+    shared = {key: {k: v.float() for k, v in params["backbone"][key].items()}
+              for key in ("shared_attn", "shared_mlp")
+              if key in params["backbone"]}
     with torch.no_grad():
         tokens = torch.as_tensor(toks, device=dev).long()
         B, S = tokens.shape
@@ -1846,9 +2116,18 @@ def fp32_oracle(torch, params, cfg, toks, ctrl, routes=(), flips=None):
                         pair = attn_mod.attention_block_pending(
                             p, cfg32, *pair, ctrl, positions,
                             attn_impl=plain)
-                    else:
+                    elif kind == "mlp":
                         pair = ffn_mod.mlp_block_pending(p, cfg32, *pair,
                                                          ctrl)
+                    else:
+                        pair = recurrent[kind](p, cfg32, *pair, ctrl)
+                if period and r % period == period - 1:
+                    pair = attn_mod.attention_block_pending(
+                        shared["shared_attn"], cfg32, *pair, ctrl,
+                        positions, attn_impl=plain)
+                    if "shared_mlp" in shared:
+                        pair = ffn_mod.mlp_block_pending(
+                            shared["shared_mlp"], cfg32, *pair, ctrl)
             offset += stage.repeat
         if routes:
             fail(f"fp32 oracle: {len(routes)} MoE records left unused")
@@ -1904,6 +2183,33 @@ def oracle_moe(torch, p, cfg32, x, delta, ctrl, walk, flips):
         a = F.silu(hf @ small["swg"]) * (hf @ small["swu"])
         y = y + ops.slice_mask(a, width) @ small["swd"]
     return s, y.reshape(B, S, d)
+
+
+def layer_trace(torch, params, cfg, ctrl, kinds):
+    """One layer of each recurrent kind in ``kinds`` (Mamba2, mLSTM,
+    sLSTM) alone, at B = 8, S = 16 on the residual stream of a random
+    input, the first such layer's weights: :func:`trace_steps`' numbers
+    for it, by kind (``<kind>_layer``). The sLSTM cell runs once a
+    token, so its layer launches S times a cell's device kernels."""
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.models import xlstm as xlstm_mod
+    blocks = {"mamba": ssm_mod.mamba_block_pending,
+              "mlstm": xlstm_mod.mlstm_block_pending,
+              "slstm": xlstm_mod.slstm_block_pending}
+    steps = {}
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    x = torch.randn((8, 16, cfg.d_model), generator=gen, device="cuda"
+                    ).to(params["embed"].dtype)
+    for kind in sorted(set(kinds) & set(blocks)):
+        j = cfg.stages[0].pattern.index(kind)
+        p = {k: v[0] for k, v in
+             params["backbone"]["stages"][0][f"{j}:{kind}"].items()}
+        steps[f"{kind}_layer"] = (lambda block=blocks[kind], p=p:
+                                  block(p, cfg, x, None, ctrl))
+    if not steps:
+        return {}
+    with torch.no_grad():
+        return trace_steps(torch, steps, n=CONFIG_TRACE_STEPS)
 
 
 def _leaves(tree):
@@ -2014,6 +2320,7 @@ def main(argv) -> int:
     timed("reference", phase_reference, torch)
     path_launches += timed("configs", phase_configs, torch, card)
     path_launches += timed("moe", phase_moe, torch, card)
+    path_launches += timed("ssm", phase_ssm, torch, card)
     line = []
     for name in PATH_KERNELS:
         route, source, replaces = SOURCES[name]

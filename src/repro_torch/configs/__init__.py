@@ -17,6 +17,8 @@ _ARCH_MODULES = (
     "stablelm_3b",
     "mixtral_8x7b",
     "llama4_maverick_400b_a17b",
+    "zamba2_2p7b",
+    "xlstm_125m",
 )
 
 _REGISTRY: Dict[str, ArchConfig] = {}

@@ -11,8 +11,9 @@ subnet and batch), derives the arrival rate and SLO from the device's own
 latencies, and serves a trace through the unchanged scheduling stack.
 
 ``--arch`` names any registered config (``repro_torch.configs``):
-qwen2-1.5b, qwen2.5-14b, stablelm-3b, h2o-danube-3-4b, mixtral-8x7b or
-llama4-maverick-400b-a17b. ``--size full`` (the default on ``--device
+qwen2-1.5b, qwen2.5-14b, stablelm-3b, h2o-danube-3-4b, mixtral-8x7b,
+llama4-maverick-400b-a17b, or the SSM family's zamba2-2.7b and
+xlstm-125m. ``--size full`` (the default on ``--device
 cuda``) keeps the published widths and depth; ``--units N`` keeps the
 first N repeat units of each stage (mixtral's 32 layers hold 93 GB of
 bf16 weights, more than one card), and a depth whose weights exceed the

@@ -1,2 +1,2 @@
-"""Model substrate in PyTorch: attention and FFN blocks, the layer-walking
-backbone and the LM step functions (dense attention LMs for now)."""
+"""Model substrate in PyTorch: attention, FFN, MoE, Mamba2 and xLSTM blocks,
+the layer-walking backbone and the LM step functions (token-frontend LMs)."""

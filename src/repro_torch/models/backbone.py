@@ -1,6 +1,6 @@
 """Backbone engine: walks the Stage patterns layer by layer with SubNetAct
-LayerSelect gating, with per-kind caches for decode (port of
-``repro/models/backbone.py`` for ``attn``, ``mlp`` and ``moe`` blocks).
+LayerSelect gating, with per-kind caches for decode and zamba2-style
+shared attention (port of ``repro/models/backbone.py``).
 
 Parameters of each stage keep the JAX layout, stacked along a leading
 ``repeat`` axis; layer ``r`` reads views ``leaf[r]``. The JAX backbone
@@ -11,7 +11,13 @@ block's residual add is left pending and made by the next block's
 pre-norm (one SubnetNorm launch on the card), so a walk makes one
 residual add of its own, at the end. A layer gate covers a whole repeat
 unit of the stage's pattern (llama4's ``(attn, moe, attn, mlp)`` is one
-unit), as in the reference; MoE blocks keep no decode cache.
+unit), as in the reference; MoE and MLP blocks keep no decode cache.
+
+zamba2's shared transformer block (one attention and one MLP, the same
+weights each time) runs after every unit whose gate is on and whose index
+``r`` in its stage has ``r % period == period - 1``. Each invocation has
+a KV cache of its own: the decode walk counts the invocations that ran
+(a host int, since the gates are host numpy) and takes that slot.
 """
 from __future__ import annotations
 
@@ -25,11 +31,25 @@ from repro_torch.core.operators import layer_select
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.common import stack_init, unstack
 
-_PORTED = ("attn", "mlp", "moe")
 _INITS = {"attn": attn_mod.init_attention, "mlp": ffn_mod.init_mlp,
-          "moe": moe_mod.init_moe}
+          "moe": moe_mod.init_moe, "mamba": ssm_mod.init_mamba,
+          "mlstm": xlstm_mod.init_mlstm, "slstm": xlstm_mod.init_slstm}
+_PORTED = tuple(_INITS)
+# kind -> cache init(cfg, batch, seq_len, dtype, device); the other kinds
+# keep no decode state
+_CACHES = {
+    "attn": attn_mod.init_attention_cache,
+    "mamba": lambda cfg, b, s, dt, dev: ssm_mod.init_mamba_cache(cfg, b, dt,
+                                                                 dev),
+    "mlstm": lambda cfg, b, s, dt, dev: xlstm_mod.init_mlstm_cache(cfg, b,
+                                                                   dt, dev),
+    "slstm": lambda cfg, b, s, dt, dev: xlstm_mod.init_slstm_cache(cfg, b,
+                                                                   dt, dev),
+}
 
 
 def _slot(j: int, kind: str) -> str:
@@ -44,14 +64,22 @@ def _check_ported(cfg: ArchConfig) -> None:
                     f"{cfg.name}: block kind {kind!r} comes with a later "
                     f"slice of the port (other LM families); ported: "
                     f"{_PORTED}")
-    if cfg.shared_attn_period:
-        raise NotImplementedError(f"{cfg.name}: zamba2-style shared "
-                                  f"attention comes with a later slice")
 
 
 # --------------------------------------------------------------------------
 # init
 # --------------------------------------------------------------------------
+
+
+def _shared_inits(cfg: ArchConfig):
+    """(key, init) of each sub-block of zamba2's shared block: attention,
+    and the MLP when the config has one. Empty without a shared block."""
+    if not cfg.shared_attn_period:
+        return ()
+    out = (("shared_attn", attn_mod.init_attention),)
+    if cfg.d_ff:
+        out += (("shared_mlp", ffn_mod.init_mlp),)
+    return out
 
 
 def init_backbone(cfg: ArchConfig, dtype, generator, device) -> Dict:
@@ -63,16 +91,26 @@ def init_backbone(cfg: ArchConfig, dtype, generator, device) -> Dict:
                 lambda kind=kind: _INITS[kind](cfg, dtype, device),
                 stage.repeat, generator, device)
             for j, kind in enumerate(stage.pattern)})
+    for key, init in _shared_inits(cfg):
+        # one layer of leaves, not stacked
+        params[key] = unstack(stack_init(
+            lambda init=init: init(cfg, dtype, device), 1, generator,
+            device), 0)
     return params
 
 
 def param_bytes(cfg: ArchConfig, dtype) -> int:
-    """Bytes of :func:`init_backbone`'s tree, from the leaves' shapes
-    alone (nothing is allocated)."""
+    """Bytes of :func:`init_backbone`'s tree, the shared block's included,
+    from the leaves' shapes alone (nothing is allocated)."""
     _check_ported(cfg)
-    return sum(stage.repeat * leaf.dtype.itemsize * int(np.prod(leaf.shape))
-               for stage in cfg.stages for kind in stage.pattern
-               for leaf in _INITS[kind](cfg, dtype, "meta").values())
+
+    def layer(init) -> int:
+        return sum(leaf.dtype.itemsize * int(np.prod(leaf.shape))
+                   for leaf in init(cfg, dtype, "meta").values())
+
+    return (sum(stage.repeat * layer(_INITS[kind]) for stage in cfg.stages
+                for kind in stage.pattern)
+            + sum(layer(init) for _, init in _shared_inits(cfg)))
 
 
 def _gates(cfg: ArchConfig, ctrl) -> np.ndarray:
@@ -85,6 +123,14 @@ def _gates(cfg: ArchConfig, ctrl) -> np.ndarray:
     if gates.shape != (n,):
         raise ValueError(f"layer_gate has shape {gates.shape}, want ({n},)")
     return gates
+
+
+def _runs_shared(params, cfg: ArchConfig, r: int) -> bool:
+    """Whether the shared block follows unit ``r`` of a stage (when the
+    unit's gate is on)."""
+    period = cfg.shared_attn_period
+    return bool(period) and "shared_attn" in params \
+        and r % period == period - 1
 
 
 # --------------------------------------------------------------------------
@@ -107,6 +153,26 @@ def _ffn(kind: str, p, cfg: ArchConfig, xd, ctrl, slice_mode: str):
     return block(p, cfg, *xd, ctrl, slice_mode=slice_mode)
 
 
+def _block(kind: str, p, cfg: ArchConfig, xd, ctrl, positions,
+           slice_mode: str, attn_impl):
+    """One block of a prefill walk on the pair ``xd``. Each block function
+    is looked up on its module at the call, so a wrapper put there is
+    seen."""
+    if kind == "attn":
+        return attn_mod.attention_block_pending(
+            p, cfg, *xd, ctrl, positions, slice_mode=slice_mode,
+            attn_impl=attn_impl)
+    if kind == "mamba":
+        block = ssm_mod.mamba_block_pending
+    elif kind == "mlstm":
+        block = xlstm_mod.mlstm_block_pending
+    elif kind == "slstm":
+        block = xlstm_mod.slstm_block_pending
+    else:
+        return _ffn(kind, p, cfg, xd, ctrl, slice_mode)
+    return block(p, cfg, *xd, ctrl, slice_mode=slice_mode)
+
+
 def backbone_forward(params, cfg: ArchConfig, x, ctrl, positions, *,
                      slice_mode: str = "mask", attn_impl=None):
     """x: (B, S, d) -> (B, S, d). ``attn_impl=None`` takes the kernel
@@ -126,16 +192,19 @@ def backbone_forward(params, cfg: ArchConfig, x, ctrl, positions, *,
         for r in range(stage.repeat):
             def unit(xd, r=r, stage=stage, sp=sp):
                 for j, kind in enumerate(stage.pattern):
-                    p = unstack(sp[_slot(j, kind)], r)
-                    if kind == "attn":
-                        xd = attn_mod.attention_block_pending(
-                            p, cfg, *xd, ctrl, positions,
-                            slice_mode=slice_mode, attn_impl=attn_impl)
-                    else:
-                        xd = _ffn(kind, p, cfg, xd, ctrl, slice_mode)
+                    xd = _block(kind, unstack(sp[_slot(j, kind)], r), cfg,
+                                xd, ctrl, positions, slice_mode, attn_impl)
                 return xd
 
-            pair = layer_select(gates[offset + r], unit, pair)
+            gate = gates[offset + r]
+            pair = layer_select(gate, unit, pair)
+            if gate and _runs_shared(params, cfg, r):
+                pair = attn_mod.attention_block_pending(
+                    params["shared_attn"], cfg, *pair, ctrl, positions,
+                    slice_mode=slice_mode, attn_impl=attn_impl)
+                if "shared_mlp" in params:
+                    pair = _ffn("mlp", params["shared_mlp"], cfg, pair,
+                                ctrl, slice_mode)
         offset += stage.repeat
     return _settle(pair)
 
@@ -145,22 +214,29 @@ def backbone_forward(params, cfg: ArchConfig, x, ctrl, positions, *,
 # --------------------------------------------------------------------------
 
 
+def _stacked(one: Dict, n: int) -> Dict:
+    """``n`` copies of a cache dict, stacked along a new leading axis."""
+    return {k: a.expand((n,) + tuple(a.shape)).clone() for k, a in one.items()}
+
+
 def init_cache(cfg: ArchConfig, batch: int, seq_len: int, dtype,
                device) -> Dict:
-    """Nested cache tree. Leading dim of each stage leaf = repeat."""
+    """Nested cache tree. Leading dim of each stage leaf = repeat; the
+    shared block's ``shared_attn`` leaves lead with one slot per
+    invocation, ``max(1, units // period)``."""
     _check_ported(cfg)
     cache: Dict[str, Any] = {"stages": []}
     for stage in cfg.stages:
-        sc = {}
-        for j, kind in enumerate(stage.pattern):
-            if kind == "attn":
-                one = attn_mod.init_attention_cache(cfg, batch, seq_len,
-                                                    dtype, device)
-                sc[_slot(j, kind)] = {
-                    k: torch.zeros((stage.repeat,) + tuple(a.shape),
-                                   dtype=a.dtype, device=device)
-                    for k, a in one.items()}
-        cache["stages"].append(sc)
+        cache["stages"].append({
+            _slot(j, kind): _stacked(
+                _CACHES[kind](cfg, batch, seq_len, dtype, device),
+                stage.repeat)
+            for j, kind in enumerate(stage.pattern) if kind in _CACHES})
+    if cfg.shared_attn_period:
+        n_inv = max(1, sum(s.repeat for s in cfg.stages)
+                    // cfg.shared_attn_period)
+        cache["shared_attn"] = _stacked(attn_mod.init_attention_cache(
+            cfg, batch, seq_len, dtype, device), n_inv)
     return cache
 
 
@@ -169,15 +245,34 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int, dtype,
 # --------------------------------------------------------------------------
 
 
+def _decode_block(kind: str, p, cfg: ArchConfig, xd, ctrl, cache, index,
+                  slice_mode: str):
+    """One block of a decode step on the pair ``xd``, its cache (None for
+    the kinds that keep none) updated in place."""
+    if kind == "attn":
+        return attn_mod.attention_decode_pending(
+            p, cfg, *xd, ctrl, cache, index, slice_mode=slice_mode)
+    if kind == "mamba":
+        block = ssm_mod.mamba_decode_pending
+    elif kind == "mlstm":
+        block = xlstm_mod.mlstm_decode_pending
+    elif kind == "slstm":
+        block = xlstm_mod.slstm_decode_pending
+    else:
+        return _ffn(kind, p, cfg, xd, ctrl, slice_mode)
+    return block(p, cfg, *xd, ctrl, cache, index)
+
+
 def backbone_decode(params, cfg: ArchConfig, x, ctrl, cache, index, *,
                     slice_mode: str = "mask"):
     """One-token decode. x: (B, 1, d) -> ((B, 1, d), cache). ``index``:
     0-d int32 tensor on x's device. The cache is updated in place (the
     JAX version returns a new tree); the returned tree is ``cache``. The
-    residual adds are carried as in :func:`backbone_forward`."""
+    residual adds are carried as in :func:`backbone_forward`. The shared
+    block's n-th invocation that runs uses cache slot n."""
     _check_ported(cfg)
     gates = _gates(cfg, ctrl)
-    offset = 0
+    offset, n_shared = 0, 0
     pair = (x, None)
     for si, stage in enumerate(cfg.stages):
         sp = params["stages"][si]
@@ -186,15 +281,22 @@ def backbone_decode(params, cfg: ArchConfig, x, ctrl, cache, index, *,
             def unit(xd, r=r, stage=stage, sp=sp, sc=sc):
                 for j, kind in enumerate(stage.pattern):
                     slot = _slot(j, kind)
-                    p = unstack(sp[slot], r)
-                    if kind == "attn":
-                        xd = attn_mod.attention_decode_pending(
-                            p, cfg, *xd, ctrl, unstack(sc[slot], r), index,
-                            slice_mode=slice_mode)
-                    else:
-                        xd = _ffn(kind, p, cfg, xd, ctrl, slice_mode)
+                    xd = _decode_block(
+                        kind, unstack(sp[slot], r), cfg, xd, ctrl,
+                        unstack(sc[slot], r) if slot in sc else None, index,
+                        slice_mode)
                 return xd
 
-            pair = layer_select(gates[offset + r], unit, pair)
+            gate = gates[offset + r]
+            pair = layer_select(gate, unit, pair)
+            if gate and _runs_shared(params, cfg, r):
+                pair = attn_mod.attention_decode_pending(
+                    params["shared_attn"], cfg, *pair, ctrl,
+                    unstack(cache["shared_attn"], n_shared), index,
+                    slice_mode=slice_mode)
+                if "shared_mlp" in params:
+                    pair = _ffn("mlp", params["shared_mlp"], cfg, pair,
+                                ctrl, slice_mode)
+                n_shared += 1
         offset += stage.repeat
     return _settle(pair), cache

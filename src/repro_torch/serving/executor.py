@@ -12,10 +12,15 @@
   read from the same device tensors). Entries run the step in that mode,
   so warmup builds the sliced kernel too.
 * **Shape buckets** — raw ``(batch, seq)`` shapes are right-padded up to
-  configured buckets. Right-padding is exact: the LM is causal, so
-  positions ``< length`` never see the pad, and each row's logits are
-  taken at its true ``length - 1``. The hidden state is gathered there
-  before the head, so the ``(B, S, vocab)`` logits are never formed.
+  configured buckets, and each row's logits are taken at its true
+  ``length - 1``. The hidden state is gathered there before the head, so
+  the ``(B, S, vocab)`` logits are never formed. Right-padding is exact
+  where every block is causal and per row: attention, the MLP, and the
+  SSM family's Mamba2, mLSTM and sLSTM blocks, whose scans run forward
+  in time, so positions ``< length`` never see the pad. It is not exact
+  for MoE configs: pad tokens route and take expert capacity like real
+  ones (``models/moe.py``), so once capacity drops a padded batch's
+  logits differ from the unpadded batch's, as in the JAX executor.
 * **Bounded entry cache** — one entry per ``(kind, bucket_batch,
   bucket_seq, tier)`` in an LRU with hit/miss/build/eviction counters
   (surfaced via ``Router.stats()["executor"]``). Building an entry runs
@@ -306,8 +311,9 @@ class SubnetExecutor:
                 lens = torch.tensor(lengths, device=dev)
                 x = lm.hidden_states(params, cfg, {"tokens": tok}, ctrl,
                                      slice_mode=slice_mode)
-                # causal: the pad never influences positions < length, so
-                # the state at length-1 IS the unpadded answer
+                # causal: the pad never influences positions < length
+                # (except through MoE capacity), so the state at length-1
+                # is the unpadded answer
                 pos = torch.clamp(lens.long() - 1, 0, tok.shape[1] - 1)
                 last = x[torch.arange(x.shape[0], device=dev), pos]
                 logits = lm.head_logits(params, cfg, last, ctrl)

@@ -57,7 +57,8 @@ TWINS = {
 DECODE_STEPS = 12        # past the danube twin's window of 8 slots
 
 
-@pytest.mark.parametrize("name", NAMES + ("qwen2-1.5b",) + MOE_NAMES)
+@pytest.mark.parametrize("name", NAMES + ("qwen2-1.5b",) + MOE_NAMES
+                         + ("zamba2-2.7b", "xlstm-125m"))
 def test_port_config_equals_jax_config(name):
     """The port's copy has every field of ``repro``'s, equal (a drift
     test), and the registry lists it."""

@@ -50,10 +50,11 @@ def test_port_imports_without_jax_or_repro():
 _CONFIGS_CHILD = _CHILD.split("import repro_torch")[0] + r"""
 from repro_torch.configs import get_config, list_configs
 for name in ("qwen2.5-14b", "stablelm-3b", "h2o-danube-3-4b",
-             "mixtral-8x7b", "llama4-maverick-400b-a17b"):
+             "mixtral-8x7b", "llama4-maverick-400b-a17b", "zamba2-2.7b",
+             "xlstm-125m"):
     get_config(name)
 mods = ("qwen2p5_14b", "stablelm_3b", "h2o_danube_3_4b", "mixtral_8x7b",
-        "llama4_maverick_400b_a17b")
+        "llama4_maverick_400b_a17b", "zamba2_2p7b", "xlstm_125m")
 assert all(f"repro_torch.configs.{{m}}" in sys.modules for m in mods)
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
@@ -62,14 +63,15 @@ print(len(list_configs()))
 
 
 def test_config_modules_import_without_jax_or_repro():
-    """The configs beside qwen2-1.5b (three dense, two MoE) load under the
-    same blocker, each from its own module of the port."""
+    """The configs beside qwen2-1.5b (three dense, two MoE, two of the SSM
+    family) load under the same blocker, each from its own module of the
+    port."""
     proc = subprocess.run(
         [sys.executable, "-c", _CONFIGS_CHILD.format(blocked=BLOCKED)],
         cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
         capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip().splitlines()[-1]) == 6
+    assert int(proc.stdout.strip().splitlines()[-1]) == 8
 
 
 def test_moe_modules_import_without_jax_or_repro():
@@ -89,6 +91,38 @@ ctrl = sn.make_control(cfg, sn.max_subnet(cfg))
 y = lm.forward(p, cfg, {{"tokens": [[1, 2, 3, 4]]}}, ctrl,
                slice_mode="switch")
 assert y.shape == (1, 4, cfg.vocab_size) and bool(torch.isfinite(y).all())
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+assert not leaked, leaked
+print("ok")
+"""
+    proc = subprocess.run(
+        [sys.executable, "-c", child.format(blocked=BLOCKED)],
+        cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+        capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "ok"
+
+
+def test_ssm_modules_import_without_jax_or_repro():
+    """The SSM slice's modules (Mamba2 and xLSTM blocks, the backbone with
+    zamba2's shared block) import under the blocker, and the reduced
+    zamba2 and xlstm run a forward and two decode steps on the CPU there."""
+    child = _CHILD.split("import repro_torch")[0] + r"""
+import torch
+from repro_torch.configs import get_config
+from repro_torch.core import subnet as sn
+from repro_torch.models import backbone, lm, ssm, xlstm
+for name in ("zamba2-2.7b", "xlstm-125m"):
+    cfg = get_config(name).reduced()
+    p = lm.init_model(cfg, torch.Generator().manual_seed(0), "cpu")
+    ctrl = sn.make_control(cfg, sn.max_subnet(cfg))
+    y = lm.forward(p, cfg, {{"tokens": [[1, 2, 3, 4]]}}, ctrl,
+                   slice_mode="switch")
+    assert y.shape == (1, 4, cfg.vocab_size) and bool(torch.isfinite(y).all())
+    cache = lm.init_cache(cfg, 1, 8, device="cpu")
+    for i in range(2):
+        y, cache = lm.decode_step(p, cfg, [[i + 1]], ctrl, cache, i)
+        assert bool(torch.isfinite(y).all())
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 print("ok")

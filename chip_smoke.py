@@ -100,6 +100,25 @@ Phases, one result line each:
    against their switch twins, the trace with one Mamba2, mLSTM and sLSTM
    layer alone, and the reference of a cut on the CPU: zamba2 at 6 units
    (one shared invocation), xlstm at 1 unit.
+11. Serving plane: full-width qwen2-1.5b at the rate and SLO that phase
+   3's B = 1 latencies give by the launcher's rule, passed as ``--rate``
+   and ``--slo-ms`` and echoed back: (a) ``launch.serve`` in process on
+   a bursty trace at CV² 8, then a time-varying one at tau 500, every
+   query served with no build; (b) two in-process replicas of one
+   executor (``--replicas 2 --placement slack_aware``) in switch mode,
+   each replica serving, ``sliced_matmul`` launched; (c) two replica
+   child processes over socketpairs (``ClusterRouter(transport="proc",
+   execute="real")``), each building the model on the card: each hello
+   names the card, every query served, each child warm (0 builds) with
+   flash and the norm launched in it, 4 completions held within 2e-2 of
+   max |logit| to an in-process executor from the same seed at the
+   subnet each reports, spawn-to-hello seconds, the frame's encode and
+   decode ms and each child's step ms beside the in-process one; (d)
+   ``--transport proc --listen 127.0.0.1:0 --autoscale`` (1 to 2
+   children over TCP): every query accounted for, every child warm, the
+   scale events printed; (e) ``--execute sim --profile measured
+   --replicas 4``: the profile measured on the card, positive and not
+   falling with batch.
 
 Each phase prints its seconds. Then one JSON line with every kernel's
 numbers (the attention kernels' also at each head_dim of phase 8), and
@@ -932,7 +951,8 @@ def phase_serve(torch):
     for name in ("subnet_rmsnorm", "flash_attention"):
         if out["kernel_launches"].get(name, 0) <= 0:
             fail(f"{name} never launched while serving")
-    return launches
+    # phase 11 paces the serving plane from these B = 1 latencies
+    return launches, (out["lat_fast_ms"], out["lat_slow_ms"])
 
 
 def phase_decode(torch):
@@ -2276,6 +2296,265 @@ def window_check(torch, cut, steps: int = 4):
 
 
 # --------------------------------------------------------------------------
+# phase 11: the serving plane
+# --------------------------------------------------------------------------
+
+PLANE_QUERIES = 64
+PLANE_SEED = 7
+PLANE_CHECKED = 4                  # child completions held to the executor
+
+
+def plane_pacing(lat_fast_ms: float, lat_slow_ms: float):
+    """Rate (q/s) and SLO (ms) from phase 3's B = 1 latencies by the
+    launcher's own rule: 0.25 / the smallest subnet's, 25x the
+    largest's."""
+    return 0.25 / (lat_fast_ms / 1e3), lat_slow_ms * 25
+
+
+def _plane_serve(torch, tag: str, argv, rate: float, slo_ms: float,
+                 queries: int = PLANE_QUERIES):
+    """``launch.serve.run`` at the phase's rate and SLO: every query
+    served, nothing built, the rate and SLO echoed back, the ported
+    kernels launched. Returns the report."""
+    from repro_torch import compat
+    from repro_torch.launch import serve
+    compat.reset_launch_counts()
+    out = serve.run(["--execute", "real", "--arch", "qwen2-1.5b",
+                     "--queries", str(queries), "--seq-len", "16",
+                     "--seed", str(PLANE_SEED), "--rate", repr(rate),
+                     "--slo-ms", repr(slo_ms)] + argv)
+    say(f"plane-{tag}", **{k: out.get(k) for k in (
+        "queries", "served", "slo_attainment", "mean_acc",
+        "p50_latency_ms", "p99_latency_ms", "rate_qps", "slo_ms",
+        "replicas", "placement", "per_replica_served", "slice_mode",
+        "serve_phase_builds", "kernel_launches", "init_seconds",
+        "warmup")})
+    if out["size"] != "full" or out["units"] != 28:
+        fail(f"plane {tag}: did not serve full-width qwen2-1.5b")
+    if out["queries"] != queries or out["served"] != queries:
+        fail(f"plane {tag}: served {out['served']} of {out['queries']}")
+    if out["serve_phase_builds"] != 0:
+        fail(f"plane {tag}: built {out['serve_phase_builds']} kernels")
+    if out["rate_qps"] != round(rate, 1) \
+            or out["slo_ms"] != round(slo_ms, 3):
+        fail(f"plane {tag}: rate/SLO {out['rate_qps']}/{out['slo_ms']} "
+             f"do not echo {rate}/{slo_ms}")
+    for name in ("subnet_rmsnorm", "flash_attention"):
+        if out["kernel_launches"].get(name, 0) <= 0:
+            fail(f"plane {tag}: {name} never launched")
+    return out
+
+
+def frame_costs(vocab: int, reps: int = 5):
+    """Host ms to encode and to decode one completion frame carrying a
+    (vocab,) fp32 logits row as JSON floats (the wire's format)."""
+    import numpy as np
+    from repro_torch.serving import ipc
+    row = np.random.default_rng(0).standard_normal(vocab).astype(np.float32)
+    frame = {"t": "completion", "qid": 0, "dropped": False,
+             "timed_out": False, "acc": 80.0, "latency": 0.03}
+    enc, dec, size = [], [], 0
+    for i in range(reps):
+        t0 = time.perf_counter()
+        data = ipc.encode_frame({**frame, "pred": ipc.to_jsonable(row)}, i)
+        enc.append((time.perf_counter() - t0) * 1e3)
+        size = len(data)
+        t0 = time.perf_counter()
+        got = ipc.FrameDecoder(expect_seq=False).feed(data)
+        dec.append((time.perf_counter() - t0) * 1e3)
+    if np.asarray(got[0]["pred"], np.float32).tolist() != row.tolist():
+        fail("a completion frame did not carry its logits bit for bit")
+    return {"frame_bytes": size, "encode_ms": sorted(enc)[reps // 2],
+            "decode_ms": sorted(dec)[reps // 2],
+            "max_frame_bytes": ipc.MAX_FRAME}
+
+
+def plane_children(torch, rate: float, slo_ms: float):
+    """(c): two replica children over socketpairs, each building
+    full-width qwen2-1.5b on the card; the coordinator's profile from the
+    same config. Every query served, each child warm (0 builds) with the
+    ported kernels launched in it, and PLANE_CHECKED completions held to
+    an in-process executor from the same seed at the subnet each reports.
+    Returns the children's launches."""
+    import asyncio
+    import numpy as np
+    from repro_torch import compat
+    from repro_torch.launch.serve import child_report
+    from repro_torch.serving import policies, profiler, runtime
+    from repro_torch.serving.executor import (build_serving_executor,
+                                              serving_config)
+    cfg = serving_config("qwen2-1.5b", "cuda")
+    prof = profiler.build_profile(cfg)
+    rng = np.random.default_rng(PLANE_SEED)
+    prompts = rng.integers(0, cfg.vocab_size,
+                           (PLANE_QUERIES, 16)).astype(np.int32)
+
+    async def go():
+        router = runtime.ClusterRouter(
+            prof, policies.SlackFit(), [1, 1], transport="proc",
+            execute="real", arch="qwen2-1.5b", seq_len=16,
+            seed=PLANE_SEED, device="cuda", spawn_timeout=300.0,
+            slo=slo_ms / 1e3)
+        t0 = time.perf_counter()
+        await router.start()
+        start_s = time.perf_counter() - t0
+        futs = []
+        t0 = time.perf_counter()
+        for i, p in enumerate(prompts):
+            wait = i / rate - (time.perf_counter() - t0)
+            if wait > 0:
+                await asyncio.sleep(wait)
+            futs.append(await router.submit(p.tolist(), slo_s=slo_ms / 1e3))
+        results = await asyncio.gather(*futs)
+        await router.drain(60.0)
+        return router, results, start_s
+
+    router, results, start_s = asyncio.run(go())
+    recs = router.records()
+    st = router.stats()
+    children = [child_report(ch, proxy)
+                for ch, proxy in zip(router._chans, router.proxies)]
+    served = sum(1 for r in recs if r.finish is not None and not r.dropped)
+    if len(recs) != PLANE_QUERIES or served != PLANE_QUERIES:
+        fail(f"plane children: served {served} of {len(recs)}")
+    card = torch.cuda.get_device_name(0)
+    launches = {}
+    for c in children:
+        if c["device_name"] != card or not c["devices"]:
+            fail(f"child {c['rid']}: hello reports {c['device_name']!r}, "
+                 f"{c['devices']} cards, not the card {card!r}")
+        if c["kernel_builds"] != 0:
+            fail(f"child {c['rid']}: {c['kernel_builds']} kernel "
+                 f"builds after warmup")
+        for k, v in (c["kernel_launches"] or {}).items():
+            launches[k] = launches.get(k, 0) + v
+    for name in ("subnet_rmsnorm", "flash_attention"):
+        if launches.get(name, 0) <= 0:
+            fail(f"{name} never launched in the children")
+    del router
+    _free(torch)
+    ex = build_serving_executor("qwen2-1.5b", seq_len=16, seed=PLANE_SEED,
+                                device="cuda")
+    accs = ex.accs()
+    errs = []
+    for i in range(PLANE_CHECKED):
+        pred, acc = results[i]
+        if acc not in accs:
+            fail(f"completion {i}: accuracy {acc} names no subnet")
+        want = ex.prefill(accs.index(acc), prompts[i][None])[0]
+        errs.append(rel_err(np.asarray(pred, np.float32), want,
+                            f"child completion {i}"))
+    # the same prefill in this process, the card no longer shared
+    step_ms = {}
+    for b in (1, 4):
+        toks = np.ones((b, 16), np.int32)
+        ex.prefill(ex.n_subnets - 1, toks)
+        t0 = time.perf_counter()
+        for _ in range(5):
+            ex.prefill(ex.n_subnets - 1, toks)
+        step_ms[f"widest_b{b}"] = (time.perf_counter() - t0) / 5 * 1e3
+    compat.reset_launch_counts()
+    say("plane-children", queries=len(recs), served=served,
+        slo_attainment=st["slo_attainment"], mean_acc=st["mean_acc"],
+        p50_latency_ms=st["p50_latency_s"] * 1e3,
+        p99_latency_ms=st["p99_latency_s"] * 1e3, rate_qps=rate,
+        slo_ms=slo_ms, start_seconds=start_s,
+        children=children,
+        child_step_ms=[c["step_s"] / c["steps"] * 1e3 if c["steps"]
+                       else None for c in children],
+        child_send_ms_per_frame=[
+            c["completion_send_s"] / c["completion_frames"] * 1e3
+            if c["completion_frames"] else None for c in children],
+        inprocess_step_ms=step_ms, rel_err_vs_inprocess=errs,
+        tol="2e-2 of max|logit|", **frame_costs(cfg.vocab_size))
+    del ex
+    _free(torch)
+    return launches
+
+
+def phase_plane(torch, pacing):
+    """Phase 11: the serving plane with full-width qwen2-1.5b at phase
+    3's rate R and SLO S. Returns the kernel launches of each driven
+    path (in-process and in the children)."""
+    rate, slo_ms = plane_pacing(*pacing)
+    say("plane-pacing", rate_qps=rate, slo_ms=slo_ms,
+        from_lat_ms=list(pacing))
+    runs = []
+    # (a) in process, bursty then time-varying
+    for tag, argv in (("bursty", ["--trace", "bursty", "--cv2", "8"]),
+                      ("time_varying", ["--trace", "time_varying",
+                                        "--tau", "500"])):
+        runs.append(_plane_serve(torch, tag, argv, rate, slo_ms))
+        _free(torch)
+    # (b) two in-process replicas of one executor, switch mode
+    out = _plane_serve(torch, "replicas", [
+        "--replicas", "2", "--placement", "slack_aware",
+        "--slice-mode", "switch"], rate, slo_ms)
+    if sorted(out["per_replica_served"]) != [0, 1] \
+            or min(out["per_replica_served"].values()) < 1:
+        fail(f"plane replicas: {out['per_replica_served']}")
+    if out["kernel_launches"].get("sliced_matmul", 0) <= 0:
+        fail("plane replicas: sliced_matmul never launched")
+    runs.append(out)
+    _free(torch)
+    # (c) two child processes over socketpairs
+    launches = [r["kernel_launches"] for r in runs]
+    launches.append(plane_children(torch, rate, slo_ms))
+    # (d) over TCP, autoscaled
+    from repro_torch.launch import serve
+    out = serve.run(["--transport", "proc", "--listen", "127.0.0.1:0",
+                     "--execute", "real", "--arch", "qwen2-1.5b",
+                     "--procs", "1", "--autoscale", "--min-replicas", "1",
+                     "--max-replicas", "2", "--queries",
+                     str(PLANE_QUERIES), "--seq-len", "16", "--seed",
+                     str(PLANE_SEED), "--rate", repr(rate), "--slo-ms",
+                     repr(slo_ms)])
+    say("plane-tcp-autoscale", **{k: out.get(k) for k in (
+        "queries", "served", "dropped", "slo_attainment", "mean_acc",
+        "p50_latency_ms", "p99_latency_ms", "rate_qps", "slo_ms",
+        "replicas_total", "replica_seconds", "scale_events",
+        "handshake_rejects", "serve_phase_builds", "kernel_launches")},
+        children=out["children"])
+    if out["queries"] != PLANE_QUERIES \
+            or out["served"] + out["dropped"] != PLANE_QUERIES:
+        fail(f"plane tcp: {out['served']} served + {out['dropped']} "
+             f"dropped of {out['queries']}")
+    for c in out["children"]:
+        if c["pid"] is not None and c["kernel_builds"] != 0:
+            fail(f"plane tcp: child {c['rid']} reports "
+                 f"{c['kernel_builds']} builds after warmup")
+    if out["rate_qps"] != round(rate, 1) \
+            or out["slo_ms"] != round(slo_ms, 3):
+        fail("plane tcp: the rate and SLO were not echoed back")
+    launches.append(out["kernel_launches"])
+    # (e) sim on the profile measured on the card: 4 replicas of 8
+    # simulated workers, each at phase 3's rate
+    out = serve.run(["--execute", "sim", "--profile", "measured",
+                     "--device", "cuda", "--arch", "qwen2-1.5b",
+                     "--replicas", "4", "--placement", "slack_aware",
+                     "--cv2", "8", "--duration", "10", "--rate",
+                     repr(32 * rate), "--slo-ms", repr(slo_ms),
+                     "--seq-len", "16", "--seed", str(PLANE_SEED)])
+    lat = out["measured_lat_ms"]
+    say("plane-sim", **{k: out.get(k) for k in (
+        "queries", "slo_attainment", "mean_acc", "p50_latency_ms",
+        "p99_latency_ms", "load_imbalance", "per_replica_served", "device",
+        "profile_batches")}, widest_lat_ms=lat[-1], narrowest_lat_ms=lat[0])
+    import numpy as np
+    lat = np.asarray(lat)
+    if out["device"] != torch.cuda.get_device_name(0) \
+            or out["size"] != "full":
+        fail("plane sim: the profile was not measured at full width on "
+             "the card")
+    if not (np.isfinite(lat).all() and (lat > 0).all()
+            and (np.diff(lat, axis=1) >= 0).all()):
+        fail("plane sim: a measured latency is not positive or falls "
+             "with batch")
+    _free(torch)
+    return launches
+
+
+# --------------------------------------------------------------------------
 
 
 SOURCES = {
@@ -2313,7 +2592,8 @@ def main(argv) -> int:
     kernels = timed("kernels", phase_kernels, torch, card)
     if "--quick" in argv:
         return 0
-    path_launches = [timed("serve", phase_serve, torch),
+    serve_launches, pacing = timed("serve", phase_serve, torch)
+    path_launches = [serve_launches,
                      timed("decode", phase_decode, torch),
                      timed("switch", phase_switch, torch)]
     timed("trace", phase_trace, torch)
@@ -2321,6 +2601,7 @@ def main(argv) -> int:
     path_launches += timed("configs", phase_configs, torch, card)
     path_launches += timed("moe", phase_moe, torch, card)
     path_launches += timed("ssm", phase_ssm, torch, card)
+    path_launches += timed("plane", phase_plane, torch, pacing)
     line = []
     for name in PATH_KERNELS:
         route, source, replaces = SOURCES[name]

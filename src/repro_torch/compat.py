@@ -19,6 +19,8 @@ it counts every ``nvcc`` compile (read at the edges of a counted block),
 so a serving run can show that it built nothing after warmup. The launch
 counter counts kernel launches per kernel name, so a run can show that
 its main path went through the kernels.
+
+:func:`child_env` is the environment of a replica child process.
 """
 from __future__ import annotations
 
@@ -63,6 +65,46 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}; expected cuda or cpu")
     return dev
+
+
+def visible_cards() -> list:
+    """The card numbers this process may use: ``CUDA_VISIBLE_DEVICES`` as
+    set, else every card torch counts (none without CUDA)."""
+    env = os.environ.get("CUDA_VISIBLE_DEVICES", "").strip()
+    if env:
+        return [c.strip() for c in env.split(",") if c.strip()]
+    if not torch.cuda.is_available():
+        return []
+    return [str(i) for i in range(torch.cuda.device_count())]
+
+
+# variables a child takes from the parent where the parent has them: the
+# CUDA toolkit (``nvcc``), its shared libraries and the temp directory
+_CHILD_PASSTHROUGH = ("CUDACXX", "CUDA_HOME", "LD_LIBRARY_PATH", "TMPDIR")
+
+
+def child_env(rid: int = 0, device: str = "cuda", **extra) -> dict:
+    """Minimal env for a replica child process (``serving/ipc.py``): the
+    port's counterpart of ``repro.compat.cpu_subprocess_env`` and
+    ``host_devices_env``.
+
+    It carries ``PATH`` and ``HOME`` (and ``extra``, e.g. ``PYTHONPATH``),
+    plus the toolkit and library variables where the parent has them, so
+    the child finds ``nvcc`` and the card. On the card (``device ==
+    "cuda"``) ``CUDA_VISIBLE_DEVICES`` pins the child to the parent's
+    visible card ``rid mod count``: on one card every child shares card
+    0. It never sets ``JAX_PLATFORMS`` (the port has no JAX) and never an
+    empty ``CUDA_VISIBLE_DEVICES``."""
+    env = {"PATH": os.environ.get("PATH", "/usr/bin:/bin"),
+           "HOME": os.environ.get("HOME", os.path.expanduser("~"))}
+    for key in _CHILD_PASSTHROUGH:
+        if os.environ.get(key):
+            env[key] = os.environ[key]
+    cards = visible_cards() if torch.device(device).type == "cuda" else []
+    if cards:
+        env["CUDA_VISIBLE_DEVICES"] = cards[int(rid) % len(cards)]
+    env.update(extra)
+    return env
 
 
 # --------------------------------------------------------------------------

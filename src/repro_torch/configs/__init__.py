@@ -19,6 +19,7 @@ _ARCH_MODULES = (
     "llama4_maverick_400b_a17b",
     "zamba2_2p7b",
     "xlstm_125m",
+    "ofa_resnet",
 )
 
 _REGISTRY: Dict[str, ArchConfig] = {}

@@ -43,11 +43,14 @@ from collections import OrderedDict
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
+import os
+
 import numpy as np
 import torch
 
 from repro_torch import compat
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs import get_config
+from repro_torch.configs.base import ArchConfig, Stage
 from repro_torch.core import operators as ops
 from repro_torch.core import subnet as sn
 from repro_torch.core.pareto import ParetoPoint, pareto_subnets
@@ -55,7 +58,8 @@ from repro_torch.models import lm
 from repro_torch.models.attention import with_wo_width
 
 __all__ = ["ExecutorConfig", "SubnetExecutor", "DecodeCache", "bucket_of",
-           "build_executor"]
+           "build_executor", "build_serving_executor", "serving_config",
+           "cut_units", "check_fits", "free_bytes"]
 
 
 def bucket_of(n: int, buckets: Sequence[int]) -> int:
@@ -347,3 +351,85 @@ def build_executor(cfg: ArchConfig, seed: int = 0, device=None,
     gen = torch.Generator(device=dev).manual_seed(seed)
     return SubnetExecutor(lm.init_model(cfg, gen, dev), cfg,
                           exec_cfg=exec_cfg)
+
+
+def cut_units(cfg: ArchConfig, units: Optional[int]) -> ArchConfig:
+    """``cfg`` with the first ``units`` repeat units of each stage (all of
+    them for None)."""
+    if units is None:
+        return cfg
+    return cfg.replace(stages=tuple(Stage(s.pattern, min(units, s.repeat))
+                                    for s in cfg.stages))
+
+
+def free_bytes(device: torch.device) -> int:
+    """Memory free on ``device``: the card's, with what PyTorch's allocator
+    holds cached but no tensor uses, or the host's for the CPU."""
+    if device.type == "cuda":
+        return (torch.cuda.mem_get_info(device)[0]
+                + torch.cuda.memory_reserved(device)
+                - torch.cuda.memory_allocated(device))
+    return os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
+
+
+def check_fits(cfg: ArchConfig, available: float) -> None:
+    """Refuse (MemoryError) a model whose weights exceed ``available``
+    bytes."""
+    need = lm.param_bytes(cfg)
+    if need > available:
+        raise MemoryError(
+            f"{cfg.name} at {sum(s.repeat for s in cfg.stages)} repeat "
+            f"units holds {need / 1e9:.1f} GB of {cfg.dtype} weights, more "
+            f"than the {available / 1e9:.1f} GB free on the device; cut "
+            f"the depth with --units")
+
+
+def serving_config(arch: str, device="cuda", size: Optional[str] = None,
+                   units: Optional[int] = None) -> ArchConfig:
+    """The config a serving executor for ``arch`` builds: the published
+    widths and depth (``size="full"``, the default on ``cuda``), cut to
+    the first ``units`` repeat units, or the small fp32 twin
+    (``"reduced"``, the default on ``cpu``). A coordinator whose replica
+    children build executors profiles this same config, so both sides
+    agree on the Pareto set. Refuses a conv or non-token config, which the
+    executor does not run, and the reduced twin on the card, whose fp32
+    head_dim 32 the CUDA kernels do not take."""
+    dev = torch.device(device)
+    size = size or ("full" if dev.type == "cuda" else "reduced")
+    cfg = get_config(arch)
+    if cfg.family == "conv" or cfg.frontend != "token":
+        raise ValueError(f"{arch}: the port serves token-frontend LMs "
+                         f"(family={cfg.family}, frontend={cfg.frontend})")
+    if size == "full":
+        return cut_units(cfg, units)
+    if size != "reduced":
+        raise ValueError(f"size must be 'full' or 'reduced', got {size!r}")
+    if units is not None:
+        raise ValueError("units cut the full config; not with size='reduced'")
+    if dev.type == "cuda":
+        raise ValueError("size='reduced' has head_dim 32 in fp32; the CUDA "
+                         "kernels take bf16 with head_dim 80, 120 or 128")
+    return cfg.reduced()
+
+
+def build_serving_executor(arch: str, seq_len: int = 16,
+                           batches: Sequence[int] = (1, 2, 4, 8),
+                           seed: int = 0, device=None,
+                           size: Optional[str] = None,
+                           units: Optional[int] = None,
+                           slice_mode: str = "mask") -> SubnetExecutor:
+    """Registry-name entry point for serving children
+    (``replica_proc``, ``execute="real"``): build the supernet executor
+    for ``serving_config(arch, device, size, units)`` on ``device``
+    (default: the GPU) in ``slice_mode``, refusing before it allocates a
+    model whose weights do not fit, and warm the ``batches`` x
+    ``seq_len`` lattice so the first submit frame never builds a kernel.
+    The coordinator must profile the same config for Pareto-set
+    agreement."""
+    dev = compat.resolve_device(device)
+    cfg = serving_config(arch, dev, size, units)
+    check_fits(cfg, free_bytes(dev))
+    ex = build_executor(cfg, seed=seed, device=dev,
+                        exec_cfg=ExecutorConfig(slice_mode=slice_mode))
+    ex.warmup(batches=tuple(batches), seqs=(int(seq_len),))
+    return ex

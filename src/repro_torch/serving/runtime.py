@@ -13,22 +13,35 @@ For deterministic tests, ``Router.run_virtual`` drives the *same*
 engine on a ``VirtualClock`` through the shared event loop — the
 parity path proving router and simulator schedule identically.
 
-Copy of ``repro/serving/runtime.py`` trimmed to the single-replica
-transport (``ServedQuery``, ``WorkerHandle``, ``Router``,
-``make_supernet_workers``); the cluster front door is not ported yet.
+Scale-out: a ``Router`` is the single-replica transport; the
+``ClusterRouter`` below composes N of them behind one asyncio front
+door, with placement delegated to ``serving/cluster.py``'s coordinator
+(and a matching ``run_virtual`` cluster parity path).
+``ClusterRouter(transport="proc")`` is ``serving/ipc.py``'s
+``ProcClusterRouter``: one OS process per replica group.
+
+A copy of ``repro/serving/runtime.py``: only the imports, this
+docstring and one comment's wording differ.
 """
 from __future__ import annotations
 
 import asyncio
 import time
+import traceback
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
+from repro_torch.serving.autoscaler import (AutoscaleConfig, ClusterAutoscaler,
+                                      coordinator_forecast)
+from repro_torch.serving.cluster import (ClusterCoordinator, drive_cluster,
+                                   make_placement)
+from repro_torch.serving.forecast import ForecastConfig
 from repro_torch.serving.engine import (CompletionRecord, Dispatch, EngineConfig,
                                   SchedulingEngine, VirtualClock, WallClock,
                                   drive)
+from repro_torch.serving.metrics import cluster_summarize
 from repro_torch.serving.policies import Policy
 from repro_torch.serving.profiler import LatencyProfile
 from repro_torch.serving.queue import Query
@@ -334,6 +347,345 @@ class Router:
               [w.wid for w in self.workers if w.alive],
               fault_times=fault_times, clock=self.clock)
         return self.engine.records()
+
+
+# --------------------------------------------------------------------------
+# Cluster front door: N single-replica Routers behind one coordinator
+# --------------------------------------------------------------------------
+
+
+class ClusterRouter:
+    """Asyncio multi-replica serving plane.
+
+    Each replica group is a full ``Router`` (one engine, its own worker
+    pool, its own schedule loop); this class is the single front door
+    that places every incoming query on one replica via the cluster
+    coordinator's ``PlacementPolicy`` and fans ``submit`` out to the
+    chosen replica. Placement logic lives in the coordinator only;
+    scheduling stays inside each replica's engine (the base rule,
+    extended).
+
+    Replica death (``kill_replica``) kills every worker in the group —
+    re-enqueueing its in-flight queries through the engine's own fault
+    path — then drains the dead replica's queue back through the
+    coordinator, which re-routes the orphans (payloads and futures
+    travel with them) to surviving replicas.
+
+    With an ``AutoscaleConfig`` the cluster additionally runs a
+    ``ClusterAutoscaler`` (serving/autoscaler.py): a live asyncio
+    control loop spawns whole Router replicas (cold start before they
+    turn routable) and gracefully decommissions them — queued work
+    re-routes with its payloads/futures, in-flight batches finish on
+    the old workers. ``run_virtual`` drives the same autoscaler on the
+    shared virtual heap for parity with ``simulate_cluster``.
+    """
+
+    # consecutive live-autoscale tick failures tolerated before the
+    # control loop re-raises (scaling dead, not unlucky)
+    AUTOSCALE_MAX_CONSEC = 3
+
+    def __new__(cls, *args, **kwargs):
+        # transport switch: "inproc" (default) keeps every replica in
+        # this process; "proc" dispatches to serving/ipc.py's
+        # ProcClusterRouter — one OS process per replica group behind
+        # the IPC front door (socketpair locally, or TCP with
+        # listen=/token= for remote replicas), same public surface,
+        # same coordinator ownership of admission/placement/lifecycle,
+        # including the live autoscaler.
+        transport = kwargs.get("transport", "inproc")
+        if transport not in ("inproc", "proc"):
+            raise ValueError(f"unknown transport {transport!r}; "
+                             f"choose from ['inproc', 'proc']")
+        if cls is ClusterRouter and transport == "proc":
+            from repro_torch.serving.ipc import ProcClusterRouter
+            return object.__new__(ProcClusterRouter)
+        return object.__new__(cls)
+
+    def __init__(self, profile: LatencyProfile, policy: Policy,
+                 replicas: Sequence[Sequence[WorkerHandle]],
+                 clock=None, engine_cfg: Optional[EngineConfig] = None,
+                 placement: str = "round_robin", placement_seed: int = 0,
+                 autoscale: Optional[AutoscaleConfig] = None,
+                 worker_factory: Optional[Callable[[int],
+                                          List[WorkerHandle]]] = None,
+                 slo: float = 0.036,
+                 forecast: Optional[ForecastConfig] = None,
+                 transport: str = "inproc", **_proc_only):
+        if _proc_only:
+            raise TypeError("arguments only valid with transport='proc': "
+                            f"{sorted(_proc_only)}")
+        # ``slo`` is the deadline regime the autoscaler's thresholds
+        # normalize to (when AutoscaleConfig.slo is None) — match the
+        # slo_s you submit/run_virtual with, as simulate_cluster's
+        # autoscaler inherits ClusterConfig.slo the same way
+        self.profile = profile
+        self.clock = clock if clock is not None else WallClock()
+        self._policy_proto = policy
+        self._engine_cfg = engine_cfg
+        self.routers = [
+            Router(profile, policy.clone(), group, clock=self.clock,
+                   engine_cfg=engine_cfg, replica_id=rid)
+            for rid, group in enumerate(replicas)]
+        # the coordinator-level forecaster must be constructed by the
+        # SAME defaulting rule as simulate_cluster (coordinator_forecast)
+        # or forecast-led schedules would diverge between transports
+        self.coord = ClusterCoordinator(
+            [r.engine for r in self.routers], make_placement(placement),
+            placement_seed=placement_seed,
+            forecast=coordinator_forecast(autoscale, forecast))
+        self._qid = 0
+        self._started = False
+        self._scale_task: Optional[asyncio.Task] = None
+        self._autoscale_errors = 0
+        # autoscaling: spawned replica groups come from worker_factory
+        # (default: spawn_workers clones of the first group's run fn,
+        # wids 0..k-1 to mirror the simulator's spawned pools)
+        self._worker_factory = worker_factory
+        if worker_factory is None and replicas and replicas[0]:
+            run0 = replicas[0][0].run
+            k = (autoscale.spawn_workers if autoscale
+                 and autoscale.spawn_workers else len(replicas[0]))
+            self._worker_factory = lambda rid: [
+                WorkerHandle(wid=i, run=run0) for i in range(k)]
+        self.autoscaler = None
+        if autoscale is not None:
+            if self._worker_factory is None:
+                raise ValueError(
+                    "autoscaling needs a worker_factory (none given and "
+                    "no first replica group to clone one from)")
+            if len(self.routers) > autoscale.max_replicas:
+                raise ValueError(
+                    f"{len(self.routers)} initial replicas exceed "
+                    f"max_replicas={autoscale.max_replicas}")
+            if (autoscale.spawn_workers is None and worker_factory is None
+                    and len({len(g) for g in replicas}) > 1):
+                raise ValueError(
+                    "heterogeneous worker pools need an explicit "
+                    "AutoscaleConfig.spawn_workers or a worker_factory")
+            self.autoscaler = ClusterAutoscaler(
+                self.coord, autoscale, self._spawn_replica_engine,
+                slo=slo, migrate_fn=self._migrate)
+
+    def _spawn_replica_engine(self, rid: int):
+        """Autoscaler hook: a spawned replica group is a full Router
+        (its engine registers with the coordinator). In the live plane
+        the autoscale loop starts it; in the virtual parity path
+        drive_cluster drives the engine directly."""
+        r = Router(self.profile, self._policy_proto.clone(),
+                   self._worker_factory(rid), clock=self.clock,
+                   engine_cfg=self._engine_cfg, replica_id=rid)
+        assert len(self.routers) == rid
+        self.routers.append(r)
+        return r.engine
+
+    # -- async serving path ---------------------------------------------
+
+    async def start(self):
+        for r in self.routers:
+            await r.start()
+        self._started = True
+        if self.autoscaler is not None:
+            self.autoscaler.anchor(self.clock.now())
+            self._scale_task = asyncio.create_task(self._autoscale_loop())
+
+    async def _autoscale_loop(self):
+        """Live control loop (wall clock): the asyncio twin of the
+        SCALE/READY events drive_cluster puts on the virtual heap. A
+        failing tick must not silently end autoscaling for the rest of
+        the run, so single errors are counted
+        (``stats()['autoscale_errors']``), reported, and the loop keeps
+        going — but ``AUTOSCALE_MAX_CONSEC`` consecutive failures mean
+        the control loop is dead, not unlucky, and the exception is
+        re-raised instead of scaling silently going dark."""
+        cfg = self.autoscaler.cfg
+        loop = asyncio.get_running_loop()
+        consecutive = 0
+        while True:
+            await asyncio.sleep(cfg.interval)
+            try:
+                for ev in self.autoscaler.tick(self.clock.now()):
+                    if ev.kind == "spawn":
+                        await self.routers[ev.rid].start()
+                        loop.call_later(
+                            max(ev.ready_at - self.clock.now(), 0.0),
+                            self._activate, ev.rid)
+                    # decommission: tick already re-routed the queue
+                    # and migrated payloads/futures via _migrate
+                consecutive = 0
+            except Exception:           # noqa: BLE001 — keep scaling alive
+                traceback.print_exc()
+                self._autoscale_errors += 1
+                consecutive += 1
+                if consecutive >= self.AUTOSCALE_MAX_CONSEC:
+                    raise
+
+    def _activate(self, rid: int):
+        """Cold start paid: the spawned replica becomes routable (a
+        replica killed mid-warm-up stays down)."""
+        if self.coord.alive[rid]:
+            self.autoscaler.activate(rid, self.clock.now())
+
+    async def submit(self, payload: Any, slo_s: float) -> asyncio.Future:
+        now = self.clock.now()
+        q = Query(deadline=now + slo_s, seq=0, arrival=now, qid=self._qid)
+        self._qid += 1
+        self.coord.queries.append(q)
+        self.coord.observe(q)           # one forecast observation per arrival
+        if not self.coord.alive_replicas():
+            # coordinator semantics (cluster.py admit): nowhere to
+            # route — record the query and resolve it as dropped
+            q.dropped = True
+            fut = asyncio.get_running_loop().create_future()
+            fut.set_result((None, 0.0))
+            return fut
+        rid = self.coord.select(q, now)
+        fut = await self.routers[rid].submit_query(q, payload)
+        if not self.coord.alive[rid]:
+            # the replica died between placement and admission (the
+            # await may suspend on the replica's lock): pull the
+            # just-admitted query back out and re-route it
+            self._rescue(rid)
+        return fut
+
+    def kill_worker(self, rid: int, wid: int):
+        self.routers[rid].kill_worker(wid)
+        if self.coord.should_decommission(rid):
+            self._rescue(rid)
+            self._book_death(rid)
+        elif (not self.coord.alive[rid]
+                and len(self.routers[rid].engine.edf)):
+            # fault re-enqueued onto an already-decommissioned replica:
+            # surrender the queue again (payloads travel with it)
+            self._rescue(rid)
+
+    def kill_replica(self, rid: int):
+        """Whole replica group dies: fault every worker, then re-route
+        its queued + re-enqueued queries (with their payloads/futures)
+        to survivors through the placement policy."""
+        was_alive = self.coord.alive[rid]
+        r = self.routers[rid]
+        for w in list(r.workers):
+            r.kill_worker(w.wid)        # may already _rescue on the last
+        if self.coord.alive[rid]:
+            self._rescue(rid)
+        if was_alive:
+            self._book_death(rid)
+
+    def _book_death(self, rid: int):
+        """Mirror drive_cluster's EV_FAULT bookkeeping on the live
+        path: the autoscaler must close the dead replica's billing
+        span (and forget it if it was still warming), or
+        replica_seconds overstates and a dead warming replica would
+        inflate n_committed forever."""
+        if self.autoscaler is not None:
+            self.autoscaler.on_death(rid, self.clock.now())
+
+    def _rescue(self, rid: int):
+        """Drain replica ``rid``'s queue back through the coordinator
+        (marking it dead), migrating payloads and futures to the
+        re-routed replicas. Safe to call again on an already-dead
+        replica — the late-admission race in ``submit`` needs exactly
+        that to re-route a query that landed after the death."""
+        self._migrate(rid, self.coord.redistribute(rid, self.clock.now()))
+
+    def _migrate(self, rid: int, moved):
+        """Move the payloads/futures of re-routed queries to their new
+        replicas and wake those schedulers. Shared by the death path
+        (``_rescue``) and the autoscaler's graceful decommission (its
+        ``migrate_fn`` hook). A no-op before ``start`` — the virtual
+        parity path drives bare engines and owns dispatch itself."""
+        if not self._started:
+            return
+        r = self.routers[rid]
+        woken = set()
+        for q, target in moved:
+            sq = r._payloads.pop(q.qid, None)
+            if sq is not None:
+                self.routers[target]._payloads[q.qid] = sq
+            woken.add(target)
+        # total-cluster death: redistribute dropped the orphans — their
+        # futures must still resolve
+        for q in list(r.engine.queries):
+            if q.dropped:
+                sq = r._payloads.pop(q.qid, None)
+                if sq is not None and not sq.done.done():
+                    sq.done.set_result((None, 0.0))
+        for target in woken:
+            tr = self.routers[target]
+            if not tr._idle:
+                # migrated queries may join a survivor's forming batch
+                # (mirrors submit_query and drive_cluster's
+                # dispatch-after-redistribute)
+                tr.offer_joins()
+        try:
+            loop = asyncio.get_running_loop()
+            for target in woken:
+                loop.create_task(self.routers[target]._notify())
+        except RuntimeError:
+            pass                        # no loop: nothing to wake
+
+    async def drain(self, timeout: float = 10.0):
+        if self._scale_task is not None:
+            self._scale_task.cancel()
+            self._scale_task = None
+        await asyncio.gather(*(r.drain(timeout) for r in self.routers))
+
+    def stats(self) -> Dict[str, float]:
+        if self.autoscaler is not None:
+            st = cluster_summarize(
+                self.coord.queries, n_replicas=self.coord.n_replicas,
+                n_joins=sum(e.n_joins for e in self.coord.engines),
+                replica_spans=self.autoscaler.replica_spans(
+                    self.clock.now()),
+                n_switches=sum(e.residency.n_switches
+                               for e in self.coord.engines),
+                n_dispatches=sum(e.residency.n_launches
+                                 for e in self.coord.engines),
+                actuation_seconds=sum(e.residency.actuation_seconds
+                                      for e in self.coord.engines))
+        else:
+            st = self.coord.stats()
+        if self.autoscaler is not None:
+            st["autoscale_errors"] = float(self._autoscale_errors)
+        snap = self.coord.forecast_snapshot(self.clock.now())
+        if snap is not None:
+            st["forecast"] = snap
+        return st
+
+    def records(self) -> List[CompletionRecord]:
+        return self.coord.records()
+
+    # -- deterministic parity path --------------------------------------
+
+    def run_virtual(self, arrivals: Sequence[float], slo_s: float,
+                    replica_deaths: Optional[Dict[int, float]] = None,
+                    fault_times: Optional[Dict[tuple, float]] = None
+                    ) -> List[CompletionRecord]:
+        """Drive the whole cluster to quiescence on its VirtualClock
+        through the shared event loop in serving/cluster.py — the
+        parity path proving ClusterRouter and ClusterSimulator place
+        and schedule identically, autoscaling included (scale ticks
+        ride the same virtual heap; spawned Routers contribute their
+        engines without ever starting an asyncio loop)."""
+        if not isinstance(self.clock, VirtualClock):
+            raise TypeError("run_virtual requires a VirtualClock cluster")
+        queries = [Query(deadline=float(t) + slo_s, seq=i,
+                         arrival=float(t), qid=i)
+                   for i, t in enumerate(arrivals)]
+        drive_cluster(
+            self.coord, queries,
+            {rid: [w.wid for w in r.workers if w.alive]
+             for rid, r in enumerate(self.routers)},
+            replica_deaths=replica_deaths, fault_times=fault_times,
+            clock=self.clock, autoscaler=self.autoscaler)
+        if self.autoscaler is not None:
+            # close open spans at the same nominal horizon the
+            # simulator bills to (last arrival + drain margin), so both
+            # transports report identical replica_seconds for
+            # identical schedules
+            t_end = (max(arrivals) if len(arrivals) else 0.0) + 4 * slo_s
+            self.autoscaler.finalize(float(t_end))
+        return self.coord.records()
 
 
 def make_supernet_workers(n: int, step_fn: Callable[[int, Any], Any],

@@ -51,10 +51,11 @@ _CONFIGS_CHILD = _CHILD.split("import repro_torch")[0] + r"""
 from repro_torch.configs import get_config, list_configs
 for name in ("qwen2.5-14b", "stablelm-3b", "h2o-danube-3-4b",
              "mixtral-8x7b", "llama4-maverick-400b-a17b", "zamba2-2.7b",
-             "xlstm-125m"):
+             "xlstm-125m", "ofa_resnet"):
     get_config(name)
 mods = ("qwen2p5_14b", "stablelm_3b", "h2o_danube_3_4b", "mixtral_8x7b",
-        "llama4_maverick_400b_a17b", "zamba2_2p7b", "xlstm_125m")
+        "llama4_maverick_400b_a17b", "zamba2_2p7b", "xlstm_125m",
+        "ofa_resnet")
 assert all(f"repro_torch.configs.{{m}}" in sys.modules for m in mods)
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
@@ -64,14 +65,14 @@ print(len(list_configs()))
 
 def test_config_modules_import_without_jax_or_repro():
     """The configs beside qwen2-1.5b (three dense, two MoE, two of the SSM
-    family) load under the same blocker, each from its own module of the
-    port."""
+    family, and the paper's OFA-ResNet, which the sim path profiles) load
+    under the same blocker, each from its own module of the port."""
     proc = subprocess.run(
         [sys.executable, "-c", _CONFIGS_CHILD.format(blocked=BLOCKED)],
         cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
         capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip().splitlines()[-1]) == 8
+    assert int(proc.stdout.strip().splitlines()[-1]) == 9
 
 
 def test_moe_modules_import_without_jax_or_repro():
@@ -123,6 +124,44 @@ for name in ("zamba2-2.7b", "xlstm-125m"):
     for i in range(2):
         y, cache = lm.decode_step(p, cfg, [[i + 1]], ctrl, cache, i)
         assert bool(torch.isfinite(y).all())
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+assert not leaked, leaked
+print("ok")
+"""
+    proc = subprocess.run(
+        [sys.executable, "-c", child.format(blocked=BLOCKED)],
+        cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+        capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "ok"
+
+
+def test_serving_plane_modules_import_without_jax_or_repro():
+    """The serving plane's modules (the wire, the replica child, the
+    cluster coordinator, the autoscaler, the simulator, OFA-ResNet's
+    config and the launcher) import under the blocker, and there the
+    simulator serves a short trace on OFA-ResNet's analytic profile, an
+    autoscaled cluster runs to quiescence on a virtual clock, and a frame
+    makes the round trip."""
+    child = _CHILD.split("import repro_torch")[0] + r"""
+from repro_torch.configs import get_config, ofa_resnet
+from repro_torch.launch import serve
+from repro_torch.serving import (autoscaler, cluster, engine, ipc, policies,
+                                 profiler, replica_proc, runtime, simulator,
+                                 traces)
+prof = profiler.build_profile(get_config("ofa_resnet"))
+arr = traces.bursty_trace(100.0, 400.0, 4.0, 0.5, 1)
+res = simulator.simulate_cluster(arr, prof, policies.SlackFit(),
+                                 simulator.ClusterConfig(n_replicas=2))
+assert len(res.records) == len(arr) > 50
+router = runtime.ClusterRouter(
+    prof, policies.SlackFit(),
+    [[runtime.WorkerHandle(wid=0, run=lambda i, p: p)]],
+    clock=engine.VirtualClock(),
+    autoscale=autoscaler.AutoscaleConfig(max_replicas=3))
+assert len(router.run_virtual(arr, 0.036)) == len(arr)
+dec = ipc.FrameDecoder()
+assert dec.feed(ipc.encode_frame({{"t": "x"}}, 0)) == [{{"t": "x", "seq": 0}}]
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 print("ok")

@@ -118,11 +118,33 @@ Phases, one result line each:
    children over TCP): every query accounted for, every child warm, the
    scale events printed; (e) ``--execute sim --profile measured
    --replicas 4``: the profile measured on the card, positive and not
-   falling with batch.
+   falling with batch. The profile is measured once, by (a)'s first run,
+   and reused by the other runs that schedule from one ((b)'s switch
+   replicas included).
+12. Training: sandwich-rule supernet training through the kernels under
+   autograd, at launch/train's shape (B = 8, S = 64, one sampled subnet,
+   lr 3e-3, the order-1 synthetic task): (a) full-width, full-depth
+   qwen2-1.5b, 4 steps in mask mode and 2 in switch mode, each step's host
+   wall, device ms and idle share (torch.profiler), peak memory, tokens a
+   second, loss, grad norm and launches; no build after the first step,
+   every loss and grad norm finite, flash and the norm launched in every
+   step and ``sliced_matmul`` in the switch steps, and no leaf left
+   without a gradient; (b) the loss and every leaf's gradient of a 2-unit
+   cut (B = 2, S = 32) on the card against the CPU's fp32 walk, max and
+   min subnet in mask mode and max in switch mode, each leaf within 2e-2
+   of its max |g| (else no further than the CPU's bf16 walk plus 0.02);
+   (c) each Function's backward at the full-width shapes against
+   torch.autograd of its plain version (bf16 tolerance), with both
+   backwards' device ms; (d) crash and resume of the 2-unit cut through
+   ``Trainer``: a checkpoint at step 2, a crash after step 3, the restored
+   leaves bit for bit the saved ones, steps 3-4 within 1e-2 of an
+   uninterrupted run's losses, save and restore seconds and bytes; (e)
+   ``python -m repro_torch.launch.train --units 2 --steps 4 --ckpt-every
+   2`` in a subprocess prints "done: step 4".
 
 Each phase prints its seconds. Then one JSON line with every kernel's
-numbers (the attention kernels' also at each head_dim of phase 8), and
-last the device line.
+numbers (the attention kernels' also at each head_dim of phase 8; the
+launches include phase 12's training steps), and last the device line.
 Exits non-zero, with no result line, when CUDA is unavailable, the port is
 missing, or any phase fails.
 """
@@ -130,6 +152,7 @@ from __future__ import annotations
 
 import itertools
 import json
+import math
 import subprocess
 import sys
 import time
@@ -2475,7 +2498,34 @@ def plane_children(torch, rate: float, slo_ms: float):
 def phase_plane(torch, pacing):
     """Phase 11: the serving plane with full-width qwen2-1.5b at phase
     3's rate R and SLO S. Returns the kernel launches of each driven
-    path (in-process and in the children)."""
+    path (in-process and in the children). The latency profile of the
+    in-process runs and of the sim is measured once, by the first run
+    that asks for it, and handed to the others (:func:`measure_once`)."""
+    from repro_torch.serving import profiler
+    measure = profiler.measure_profile
+    profiler.measure_profile = measure_once(measure)
+    try:
+        return _plane_runs(torch, pacing)
+    finally:
+        profiler.measure_profile = measure
+
+
+def measure_once(measure):
+    """``measure`` (``profiler.measure_profile``) run on the first call
+    only; every later call gets that first profile. Each run of phase 11
+    that schedules from a measured profile serves the same full-width
+    qwen2-1.5b at the same sequence length, so one measurement (18
+    subnets x 4 batches, 10-17 s on the card) serves them all."""
+    memo = []
+
+    def once(*args, **kw):
+        if not memo:
+            memo.append(measure(*args, **kw))
+        return memo[0]
+    return once
+
+
+def _plane_runs(torch, pacing):
     rate, slo_ms = plane_pacing(*pacing)
     say("plane-pacing", rate_qps=rate, slo_ms=slo_ms,
         from_lat_ms=list(pacing))
@@ -2555,6 +2605,422 @@ def phase_plane(torch, pacing):
 
 
 # --------------------------------------------------------------------------
+# phase 12: supernet training
+# --------------------------------------------------------------------------
+
+# launch/train's shape: B = 8, S = 64, one sampled subnet besides the max
+# and the min, lr 3e-3, the order-1 synthetic task with 1% noise
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 8, 64, 3e-3
+TRAIN_STEPS = (("mask", 4), ("switch", 2))
+# a leaf's gradient on the card against the CPU's fp32 walk: max |delta|
+# within GRAD_TOL of the leaf's max |g_cpu| (the bf16 tolerance of
+# tests/test_kernels.py), else no further than the CPU's own bf16 walk
+# plus GRAD_MARGIN
+GRAD_TOL = 2e-2
+GRAD_MARGIN = 0.02
+# each resumed step's loss against the uninterrupted run's (the embedding
+# backward sums with atomics on the card, so bits may differ)
+RESUME_TOL = 1e-2
+
+
+def _train_task(torch, vocab: int, seq: int, batch: int):
+    from repro_torch.training import data
+    return data.SyntheticTask(vocab_size=vocab, seq_len=seq,
+                              global_batch=batch, seed=0, order=1,
+                              noise=0.01)
+
+
+def _on_card(torch, batch):
+    return {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+
+
+def _rel(torch, got, want) -> float:
+    """max |got - want| over max |want|, None read as zeros: 0 when both
+    are 0, inf when only ``want`` is."""
+    if got is None and want is None:
+        return 0.0
+    got = torch.zeros_like(want) if got is None else got.float()
+    want = torch.zeros_like(got) if want is None else want.float()
+    diff = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    if diff == 0:
+        return 0.0
+    return diff / scale if scale > 0 else float("inf")
+
+
+def _bits(torch, t):
+    return t.view(torch.int16) if t.element_size() == 2 else \
+        t.view(torch.int32)
+
+
+def train_full(torch):
+    """(a) Full-width, full-depth qwen2-1.5b at launch/train's shape: 4
+    sandwich steps in mask mode, then 2 in switch mode, each under
+    torch.profiler (device activity only): host wall ms (to the loss read
+    back), device ms and idle share, peak memory, tokens a second, loss,
+    grad norm, builds and each kernel's launches. Returns the launches of
+    each step."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import compat
+    from repro_torch.configs import get_config
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.training import optimizer as opt, supernet
+    from repro_torch.training.trainer import Trainer, TrainerConfig
+    cfg = get_config("qwen2-1.5b")
+    task = _train_task(torch, cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH)
+    n_steps = sum(n for _, n in TRAIN_STEPS)
+    ocfg = opt.AdamWConfig(lr=TRAIN_LR, warmup_steps=max(n_steps // 10, 1),
+                           total_steps=n_steps)
+    t0 = time.perf_counter()
+    st = Trainer(cfg, ocfg, TrainerConfig(), task,
+                 device="cuda").init_state(0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    params, state = st.params, st.opt_state
+    leaves = tree_leaves(params)
+    # the max subnet reaches every leaf: none may be left without a
+    # gradient (as the CPU reference's is nonzero for each)
+    loss = supernet.sandwich_loss(params, cfg, _on_card(torch, task.batch(0)),
+                                  torch.Generator().manual_seed(0))
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    unreached = [i for i, g in enumerate(grads) if g is None]
+    del loss, grads
+    if unreached:
+        fail(f"train: leaves {unreached} got no gradient from the sandwich")
+    rows, launches, i = [], [], 0
+    for mode, n in TRAIN_STEPS:
+        step = supernet.make_train_step(cfg, ocfg, n_random=1,
+                                        slice_mode=mode)
+        for _ in range(n):
+            batch = _on_card(torch, task.batch(i))
+            gen = torch.Generator().manual_seed(i)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            compat.reset_launch_counts()
+            with compat.BuildCounter() as bc, \
+                    profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                params, state, m = step(params, state, batch, gen)
+                loss = float(m["loss"])
+                wall = (time.perf_counter() - t0) * 1e3
+            n_launch = compat.launch_counts()
+            launches.append(n_launch)
+            us = 0.0
+            for ev in prof.events():
+                if ev.device_type == torch.autograd.DeviceType.CUDA:
+                    t = getattr(ev, "self_device_time_total", None)
+                    us += ev.self_cuda_time_total if t is None else t
+            dev_ms = us / 1e3
+            rows.append(dict(
+                step=i + 1, mode=mode, wall_ms=wall,
+                device_ms=dev_ms if dev_ms > 0 else "not measured",
+                device_idle_share=(1 - dev_ms / wall) if dev_ms > 0
+                else "not measured",
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / (wall / 1e3),
+                loss=loss, grad_norm=float(m["grad_norm"]),
+                lr=float(m["lr"]), builds=bc.count, launches=n_launch))
+            say("train-step", **rows[-1])
+            if i > 0 and bc.count != 0:
+                fail(f"train step {i + 1}: built {bc.count} kernels")
+            if not (math.isfinite(loss)
+                    and math.isfinite(rows[-1]["grad_norm"])):
+                fail(f"train step {i + 1}: loss {loss}, grad norm "
+                     f"{rows[-1]['grad_norm']}")
+            for name in ("flash_attention", "subnet_rmsnorm") + (
+                    ("sliced_matmul",) if mode == "switch" else ()):
+                if n_launch.get(name, 0) <= 0:
+                    fail(f"train step {i + 1} ({mode}): {name} never "
+                         f"launched")
+            i += 1
+    n_params = sum(p.numel() for p in leaves)
+    param_gb = sum(p.numel() * p.element_size() for p in leaves) / 1e9
+    say("train-full", arch=cfg.name, units=28, params=n_params,
+        param_gb=param_gb, grad_gb=param_gb, moment_gb=n_params * 8 / 1e9,
+        init_seconds=init_s, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        logits_mb=TRAIN_BATCH * TRAIN_SEQ * cfg.vocab_size * 4 / 1e6,
+        losses=[r["loss"] for r in rows],
+        wall_ms=[r["wall_ms"] for r in rows],
+        device_ms=[r["device_ms"] for r in rows],
+        peak_gb=max(r["peak_gb"] for r in rows))
+    return launches
+
+
+def _loss_grads(torch, params, cfg, batch, ctrl, mode):
+    """(loss, each leaf's gradient on the CPU in fp32, None where autograd
+    gave none) of ``lm.loss_fn``."""
+    from repro_torch.models import lm
+    from repro_torch.models.common import tree_leaves
+    leaves = tree_leaves(params)
+    loss = lm.loss_fn(params, cfg, batch, ctrl, slice_mode=mode)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return float(loss.detach()), [
+        None if g is None else g.detach().float().cpu() for g in grads]
+
+
+def train_reference(torch):
+    """(b) The loss and every leaf's gradient of qwen2-1.5b cut to 2 units
+    at full width (B = 2, S = 32): the card (bf16, through the kernels and
+    their backward passes) against the CPU's fp32 plain walk from the same
+    weights, for the max and the min subnet in mask mode and the max in
+    switch mode. A leaf past GRAD_TOL is held to the CPU's own bf16 walk
+    plus GRAD_MARGIN."""
+    from repro_torch.core import subnet as sn
+    from repro_torch.models.common import tree_flatten_with_path, tree_leaves
+    cfg, gpu, cfg32, cpu = depth_cut(torch, "qwen2-1.5b", seed=12)
+    cpu16 = None
+    for t in tree_leaves(gpu) + tree_leaves(cpu):
+        t.requires_grad_()
+    paths = ["/".join(map(str, p)) for p, _ in tree_flatten_with_path(gpu)]
+    batch = _train_task(torch, cfg.vocab_size, 32, 2).batch(0)
+    for mode, sub in (("mask", sn.max_subnet(cfg)),
+                      ("mask", sn.min_subnet(cfg)),
+                      ("switch", sn.max_subnet(cfg))):
+        ctrl = sn.make_control(cfg, sub)
+        t0 = time.perf_counter()
+        loss, got = _loss_grads(torch, gpu, cfg, batch, ctrl, mode)
+        want_loss, want = _loss_grads(torch, cpu, cfg32, batch, ctrl, mode)
+        cpu_s = time.perf_counter() - t0
+        errs = []
+        for path, g, w in zip(paths, got, want):
+            if g is None and w is not None and bool((w != 0).any()):
+                fail(f"train reference {mode} {sub.key()}: {path} has no "
+                     f"gradient on the card, a nonzero one on the CPU")
+            errs.append(_rel(torch, g, w))
+        held = {}
+        if max(errs) > GRAD_TOL:
+            if cpu16 is None:
+                cpu16 = to_cpu(gpu)
+                for t in tree_leaves(cpu16):
+                    t.requires_grad_()
+            _, ref16 = _loss_grads(torch, cpu16, cfg, batch, ctrl, mode)
+            for j, e in enumerate(errs):
+                if e > GRAD_TOL:
+                    e16 = _rel(torch, ref16[j], want[j])
+                    held[paths[j]] = [e, e16]
+                    if e > e16 + GRAD_MARGIN:
+                        fail(f"train reference {mode} {sub.key()}: "
+                             f"{paths[j]} gradient {e} of max |g| from the "
+                             f"CPU's fp32, its bf16 walk {e16}")
+        worst = max(range(len(errs)), key=errs.__getitem__)
+        loss_err = abs(loss - want_loss) / abs(want_loss)
+        say("train-reference", mode=mode, subnet=sub.key(), units=2,
+            batch=2, seq=32, loss=loss, loss_cpu_fp32=want_loss,
+            loss_rel_err=loss_err, leaves=len(errs),
+            worst_leaf=paths[worst], worst_rel_err=errs[worst],
+            tol=GRAD_TOL, held_by_cpu_bf16=held, seconds=cpu_s)
+        if loss_err > GRAD_TOL:
+            fail(f"train reference {mode} {sub.key()}: loss {loss} against "
+                 f"{want_loss} on the CPU")
+    del gpu, cpu, cpu16
+    _free(torch)
+
+
+def train_functions(torch):
+    """(c) Each Function alone at the full-width shapes of a training step
+    (B = 8, S = 64): both norm forms at 512 rows x 1536, flash at (8, 12/2,
+    64, 128) with every head and with 6, sliced_matmul at FFN up and down
+    and at wo (2 segments), full and half width. The gradients through the
+    kernel against torch.autograd of the plain version on the card (bf16
+    tolerance), and each backward's device ms beside the plain version's."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import sliced_matmul as sm
+    from repro_torch.kernels import subnet_rmsnorm as rn
+    gen = torch.Generator(device="cuda").manual_seed(5)
+
+    def leaf(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale
+                ).to(dtype).requires_grad_()
+
+    def i32(v):
+        return torch.tensor(v, dtype=torch.int32, device="cuda")
+
+    rows = {}
+
+    def case(name, kernel, plain, inputs):
+        outs, want_outs = kernel(*inputs), plain(*inputs)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        want_outs = want_outs if isinstance(want_outs, tuple) \
+            else (want_outs,)
+        dys = [torch.randn(o.shape, generator=gen, device="cuda").to(o.dtype)
+               for o in outs]
+
+        def backward(o):
+            return lambda: torch.autograd.grad(o, inputs, dys,
+                                               retain_graph=True)
+
+        got, want = backward(outs)(), backward(want_outs)()
+        errs = [_compare(torch, f"train {name} backward", g, w)
+                for g, w in zip(got, want)]
+        rows[name] = dict(
+            max_abs_err=max(errs),
+            rel_err=max(_rel(torch, g, w) for g, w in zip(got, want)),
+            backward_device_ms=device_ms(torch, backward(outs)),
+            plain_backward_device_ms=device_ms(torch, backward(want_outs)))
+
+    sid = i32(7)
+    gamma = (1 + 0.1 * torch.randn((18, 1536), generator=gen, device="cuda")
+             ).requires_grad_()
+    x = leaf(512, 1536)
+    case("subnet_rmsnorm", lambda x, g: kops.subnet_rmsnorm(x, g, sid),
+         lambda x, g: rn.subnet_rmsnorm_plain(x, g, sid), (x, gamma))
+    case("add_subnet_rmsnorm",
+         lambda x, d, g: kops.add_subnet_rmsnorm(x, d, g, sid),
+         lambda x, d, g: rn.add_subnet_rmsnorm_plain(x, d, g, sid),
+         (x, leaf(512, 1536), gamma))
+    q, k, v = leaf(8, 12, 64, 128), leaf(8, 2, 64, 128), leaf(8, 2, 64, 128)
+    for hw in (None, 6):
+        w = None if hw is None else i32(hw)
+        case(f"flash_attention_hw{hw or 12}",
+             lambda q, k, v: kops.flash_attention(q, k, v, head_width=w),
+             lambda q, k, v: fa.flash_attention_plain(q, k, v, head_width=w),
+             (q, k, v))
+    for tag, (K, N, ai, ao, seg) in {
+            "ffn_up": (1536, 8960, None, 8960, 1),
+            "ffn_up_half": (1536, 8960, None, 4480, 1),
+            "ffn_down": (8960, 1536, 8960, None, 1),
+            "ffn_down_half": (8960, 1536, 4480, None, 1),
+            "wo": (1536, 1536, 768, None, 2),
+            "wo_half": (1536, 1536, 384, None, 2)}.items():
+        a = None if ai is None else i32(ai)
+        b = None if ao is None else i32(ao)
+        case(f"sliced_matmul_{tag}",
+             lambda x, w: kops.sliced_matmul(x, w, a, b, segments=seg),
+             lambda x, w: sm.sliced_matmul_plain(x, w, a, b, segments=seg),
+             (leaf(512, K), leaf(K, N, scale=K ** -0.5)))
+    say("train-functions", tol=BF16_TOL, **rows)
+    _free(torch)
+
+
+def train_resume(torch):
+    """(d) Crash and resume at the 2-unit cut: a Trainer with ckpt_every=2
+    runs to step 2 (saving it), crashes after step 3, resumes at step 2
+    with every leaf equal to the saved one bit for bit, and runs to step 4,
+    each resumed loss within RESUME_TOL of an uninterrupted run's. Save and
+    restore seconds and bytes. Returns the trainer's kernel launches."""
+    import os
+    import shutil
+    import tempfile
+    from repro_torch import compat
+    from repro_torch.configs import get_config
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.serving.executor import cut_units
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.trainer import Trainer, TrainerConfig
+    cfg = cut_units(get_config("qwen2-1.5b"), 2)
+    task = _train_task(torch, cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH)
+    ocfg = opt.AdamWConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=4)
+    d = tempfile.mkdtemp(prefix="train-ckpt-")
+    seconds = {"save": [], "restore": []}
+    save, restore = ckpt.save, ckpt.restore
+
+    def timed(kind, fn):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            seconds[kind].append(time.perf_counter() - t0)
+            return out
+        return run
+
+    ckpt.save, ckpt.restore = timed("save", save), timed("restore", restore)
+    try:
+        tr = Trainer(cfg, ocfg, TrainerConfig(total_steps=4, ckpt_every=2,
+                                              ckpt_dir=d), task,
+                     device="cuda")
+        compat.reset_launch_counts()
+        st = tr.run(tr.resume_or_init(0), until=2)
+        saved = [_bits(torch, t).clone() for t in tree_leaves(
+            {"params": st.params, "opt": st.opt_state})]
+        step_dir = os.path.join(d, "step_00000002")
+        nbytes = sum(os.path.getsize(os.path.join(step_dir, f))
+                     for f in os.listdir(step_dir))
+        first = list(st.losses)
+        try:
+            tr.run(st, until=4, crash_at=3)
+        except RuntimeError as exc:
+            if "simulated node failure at step 3" not in str(exc):
+                raise
+        else:
+            fail("train resume: the run did not crash at step 3")
+        del st
+        st = tr.resume_or_init(0)
+        if st.step != 2:
+            fail(f"train resume: resumed at step {st.step}, not 2")
+        back = tree_leaves({"params": st.params, "opt": st.opt_state})
+        if len(back) != len(saved) or not all(
+                torch.equal(_bits(torch, a), b) for a, b in zip(back, saved)):
+            fail("train resume: a restored leaf differs from the saved one")
+        del back, saved
+        st = tr.run(st, until=4)
+        launches = compat.launch_counts()
+        ref = tr.init_state(0)
+        params, state, clean = ref.params, ref.opt_state, []
+        for i in range(4):
+            params, state, m = tr.step_fn(params, state,
+                                          _on_card(torch, task.batch(i)),
+                                          torch.Generator().manual_seed(i))
+            clean.append(float(m["loss"]))
+        diffs = [abs(a - b) for a, b in zip(st.losses, clean[2:])]
+        say("train-resume", units=2, ckpt_bytes=nbytes,
+            save_seconds=seconds["save"], restore_seconds=seconds["restore"],
+            losses_before_crash=first, losses_resumed=st.losses,
+            losses_uninterrupted=clean, resumed_abs_diff=diffs,
+            tol=RESUME_TOL, restored_bit_for_bit=True)
+        if len(diffs) != 2 or max(diffs) > RESUME_TOL:
+            fail(f"train resume: resumed losses {st.losses} against the "
+                 f"uninterrupted {clean[2:]}")
+    finally:
+        ckpt.save, ckpt.restore = save, restore
+        shutil.rmtree(d, ignore_errors=True)
+    _free(torch)
+    return launches
+
+
+def train_launcher(torch):
+    """(e) ``python -m repro_torch.launch.train --arch qwen2-1.5b --units 2
+    --steps 4 --ckpt-every 2`` in a subprocess: exit 0 and "done: step
+    4"."""
+    import os
+    import shutil
+    import tempfile
+    d = tempfile.mkdtemp(prefix="train-launch-")
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+             "qwen2-1.5b", "--units", "2", "--steps", "4", "--ckpt-every",
+             "2", "--ckpt-dir", d],
+            cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+            capture_output=True, text=True, timeout=300)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    lines = proc.stdout.strip().splitlines()
+    say("train-launcher", rc=proc.returncode,
+        seconds=time.perf_counter() - t0, stdout=lines[-2:])
+    if proc.returncode != 0 or not any(ln.startswith("done: step 4")
+                                       for ln in lines):
+        fail(f"train launcher: rc {proc.returncode}, stdout {lines[-3:]}, "
+             f"stderr {proc.stderr.strip().splitlines()[-5:]}")
+
+
+def phase_train(torch):
+    """Phase 12: supernet training on the card. Returns the kernel
+    launches of the driven training paths ((a)'s steps and (d)'s
+    trainer)."""
+    launches = train_full(torch)
+    _free(torch)
+    train_reference(torch)
+    train_functions(torch)
+    launches.append(train_resume(torch))
+    train_launcher(torch)
+    return launches
+
+
+# --------------------------------------------------------------------------
 
 
 SOURCES = {
@@ -2602,6 +3068,7 @@ def main(argv) -> int:
     path_launches += timed("moe", phase_moe, torch, card)
     path_launches += timed("ssm", phase_ssm, torch, card)
     path_launches += timed("plane", phase_plane, torch, pacing)
+    path_launches += timed("train", phase_train, torch)
     line = []
     for name in PATH_KERNELS:
         route, source, replaces = SOURCES[name]

@@ -138,6 +138,78 @@ def make_control(cfg: ArchConfig, sub: SubnetDescriptor) -> Dict[str, np.ndarray
     return ctrl
 
 
+def option_counts(cfg: ArchConfig) -> Tuple[int, int, int, int]:
+    """Options of each elastic dimension: depth, ffn, heads, top-k."""
+    e = cfg.elastic
+    return (len(e.depth_fracs), len(e.ffn_fracs), len(e.head_fracs),
+            len(e.topk_options or (cfg.top_k,)))
+
+
+def control_from_indices(cfg: ArchConfig, di: int, fi: int, hi: int,
+                         ki: int) -> Dict[str, np.ndarray]:
+    """The control tuple of the subnet with option indices ``(di, fi, hi,
+    ki)`` into the sorted depth, ffn, head and top-k options, in
+    :func:`make_control`'s form (``layer_gate`` a host bool array, the
+    rest int32 scalars).
+
+    Port of the body of ``repro.core.subnet.sample_control_jax``, with its
+    own arithmetic: the fractions are float32, a stage keeps
+    ``max(1, ceil(repeat * frac))`` units, a width is ``round(total * frac
+    / align) * align`` (half to even) clipped to ``[min(align, total),
+    total]``, and ``subnet_id`` the mixed-radix index of
+    :func:`enumerate_space`. This is not :func:`make_control`'s ``_align``
+    on float64."""
+    e = cfg.elastic
+    f32 = np.float32
+    d_frac = f32(sorted(e.depth_fracs)[di])
+    f_frac = f32(sorted(e.ffn_fracs)[fi])
+    h_frac = f32(sorted(e.head_fracs)[hi])
+    topk_opts = sorted(e.topk_options or (cfg.top_k,))
+
+    gates = []
+    for s in cfg.stages:
+        n_active = max(1, int(np.ceil(f32(s.repeat) * d_frac)))
+        gates.append(np.arange(s.repeat) < n_active)
+    layer_gate = (np.concatenate(gates) if gates
+                  else np.zeros((0,), dtype=bool))
+
+    def aligned(total: int, frac, align: int = CHANNEL_ALIGN) -> np.int32:
+        w = np.round(f32(total) * frac / f32(align)) * f32(align)
+        return np.int32(np.clip(w, min(align, total), total))
+
+    group = head_group_size(cfg)
+    if group > 1:
+        kv = cfg.n_heads // group
+        head_width = kv * max(1, int(np.round(f32(group) * h_frac)))
+    else:
+        head_width = max(1, int(np.round(f32(cfg.n_heads) * h_frac)))
+    slstm_ff = int(cfg.slstm_proj_factor * cfg.d_model)
+    _, n_f, n_h, n_k = option_counts(cfg)
+    return {
+        "layer_gate": layer_gate,
+        "ffn_width": aligned(cfg.d_ff, f_frac) if cfg.d_ff else np.int32(0),
+        "slstm_ffn_width": aligned(slstm_ff, f_frac, 64),
+        "ffn_bucket": np.int32(fi),
+        "moe_ffn_width": (aligned(cfg.resolved_moe_d_ff, f_frac)
+                          if cfg.resolved_moe_d_ff else np.int32(0)),
+        "head_width": np.int32(head_width),
+        "head_bucket": np.int32(hi),
+        "topk": np.int32(topk_opts[ki]),
+        "subnet_id": np.int32(((di * n_f + fi) * n_h + hi) * n_k + ki),
+    }
+
+
+def sample_control(cfg: ArchConfig, generator) -> Dict[str, np.ndarray]:
+    """A random subnet's control tuple for sandwich-rule training: the
+    four option indices drawn on the host from ``generator`` (a CPU
+    ``torch.Generator``), uniform over each dimension's options as
+    ``sample_control_jax`` draws them."""
+    import torch
+    idx = [int(torch.randint(0, n, (), generator=generator))
+           for n in option_counts(cfg)]
+    return control_from_indices(cfg, *idx)
+
+
 def width_options(cfg: ArchConfig) -> Dict[str, List[int]]:
     """The discrete channel-count options per elastic dimension —
     these are the static shapes compiled into WeightSlice switch-mode."""

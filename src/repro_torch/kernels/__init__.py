@@ -1,3 +1,3 @@
 """Hand-written Hopper kernels (CUDA C++ under ``csrc/``), their plain
-PyTorch versions, the device-decided dispatcher and the public entry
-points (ops.py)."""
+PyTorch versions, their gradients (autograd.py), the device-decided
+dispatcher and the public entry points (ops.py)."""

@@ -7,6 +7,11 @@ no chain to fall down: the device of the call's tensors picks the tier, a
 CUDA tensor resolves to ``cuda`` or raises, a CPU tensor to ``torch``. An
 explicit tier (per call, or pinned process-wide through
 :func:`repro_torch.compat.set_kernel_tier`) must agree with the device.
+
+A ``cuda`` implementation is registered as differentiable when it goes
+through a ``torch.autograd.Function`` (``kernels/autograd.py``); any other
+refuses a call under grad whose inputs require grad
+(``autograd.check_no_grad``), so no kernel output silently ends a graph.
 """
 from __future__ import annotations
 
@@ -15,6 +20,7 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from repro_torch import compat
+from repro_torch.kernels.autograd import check_no_grad
 
 
 class KernelDispatcher:
@@ -22,12 +28,18 @@ class KernelDispatcher:
 
     def __init__(self):
         self._impls: Dict[str, Dict[str, Callable]] = {}
+        self._differentiable = set()
 
-    def register(self, name: str, tier: str, fn: Callable) -> Callable:
+    def register(self, name: str, tier: str, fn: Callable,
+                 differentiable: bool = False) -> Callable:
+        """``differentiable``: a ``cuda`` impl that carries its own
+        gradient (the ``torch`` tier's plain ops always do)."""
         if tier not in compat.KERNEL_TIERS:
             raise ValueError(f"unknown tier {tier!r}; "
                              f"expected one of {compat.KERNEL_TIERS}")
         self._impls.setdefault(name, {})[tier] = fn
+        if differentiable:
+            self._differentiable.add((name, tier))
         return fn
 
     def kernels(self) -> Tuple[str, ...]:
@@ -59,15 +71,17 @@ class KernelDispatcher:
         return want, impls[want]
 
     def call(self, name: str, *args, tier: Optional[str] = None, **kwargs):
-        _, fn = self.resolve(name, args[0].device, tier)
+        got, fn = self.resolve(name, args[0].device, tier)
+        if got == "cuda" and (name, got) not in self._differentiable:
+            check_no_grad(name, args, kwargs)
         return fn(*args, **kwargs)
 
 
 DISPATCHER = KernelDispatcher()
 
 
-def register(name: str, tier: str):
+def register(name: str, tier: str, differentiable: bool = False):
     """Decorator: register ``fn`` as the ``tier`` impl of ``name``."""
     def deco(fn: Callable) -> Callable:
-        return DISPATCHER.register(name, tier, fn)
+        return DISPATCHER.register(name, tier, fn, differentiable)
     return deco

@@ -7,9 +7,15 @@ kernel) and ``torch`` (its plain version). The device of the first tensor
 argument picks one; a per-call ``tier=`` must agree with it. There is no
 fallthrough: a CUDA tensor runs the kernel or raises, never the plain
 version.
+
+The ``cuda`` implementations of the kernels a training forward reaches
+(flash attention, both norm forms, ``sliced_matmul``) run through the
+``torch.autograd.Function``s of :mod:`repro_torch.kernels.autograd`;
+``decode_attention`` has none and refuses a call that needs a gradient.
 """
 from __future__ import annotations
 
+from repro_torch.kernels import autograd as ag
 from repro_torch.kernels import ref
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
@@ -18,13 +24,14 @@ from repro_torch.kernels import subnet_rmsnorm as _rmsnorm
 from repro_torch.kernels.dispatch import DISPATCHER, register
 
 
-@register("flash_attention", "cuda")
+@register("flash_attention", "cuda", differentiable=True)
 def _flash_cuda(q, k, v, *, causal, window, kv_len, head_width, q_block,
                 kv_block):
     # the kernel picks its own tiles (kernels/flash_attention.py,
     # pack_plan); the block arguments bind only the plain version
-    return _flash.flash_attention(q, k, v, causal=causal, window=window,
-                                  kv_len=kv_len, head_width=head_width)
+    return ag.flash_attention(_flash.flash_attention, q, k, v, causal=causal,
+                              window=window, kv_len=kv_len,
+                              head_width=head_width)
 
 
 @register("flash_attention", "torch")
@@ -46,12 +53,12 @@ def _decode_torch(q, k_cache, v_cache, index, *, window, kv_block):
                                           window=window, kv_block=kv_block)
 
 
-@register("sliced_matmul", "cuda")
+@register("sliced_matmul", "cuda", differentiable=True)
 def _sliced_cuda(x, w, active_in, active_out, *, segments, bm, bk, bn):
     # tile sizes are fixed by the kernel (64 or 128 rows x 128 x 64); the
     # block arguments are kept for the JAX entry point's signature
-    return _sliced.sliced_matmul(x, w, active_in, active_out,
-                                 segments=segments)
+    return ag.sliced_matmul(_sliced.sliced_matmul, x, w, active_in,
+                            active_out, segments=segments)
 
 
 @register("sliced_matmul", "torch")
@@ -60,9 +67,10 @@ def _sliced_torch(x, w, active_in, active_out, *, segments, bm, bk, bn):
                                        segments=segments)
 
 
-@register("subnet_rmsnorm", "cuda")
+@register("subnet_rmsnorm", "cuda", differentiable=True)
 def _rmsnorm_cuda(x, gamma_table, subnet_id, *, eps):
-    return _rmsnorm.subnet_rmsnorm(x, gamma_table, subnet_id, eps=eps)
+    return ag.subnet_rmsnorm(_rmsnorm.subnet_rmsnorm, x, gamma_table,
+                             subnet_id, eps=eps)
 
 
 @register("subnet_rmsnorm", "torch")
@@ -70,10 +78,10 @@ def _rmsnorm_torch(x, gamma_table, subnet_id, *, eps):
     return _rmsnorm.subnet_rmsnorm_plain(x, gamma_table, subnet_id, eps=eps)
 
 
-@register("add_subnet_rmsnorm", "cuda")
+@register("add_subnet_rmsnorm", "cuda", differentiable=True)
 def _add_rmsnorm_cuda(x, delta, gamma_table, subnet_id, *, eps):
-    return _rmsnorm.add_subnet_rmsnorm(x, delta, gamma_table, subnet_id,
-                                       eps=eps)
+    return ag.add_subnet_rmsnorm(_rmsnorm.add_subnet_rmsnorm, x, delta,
+                                 gamma_table, subnet_id, eps=eps)
 
 
 @register("add_subnet_rmsnorm", "torch")

@@ -13,12 +13,20 @@ Control values (``kv_len``, ``index``, ``subnet_id``, widths) may be Python
 ints or 0-d integer tensors on the data's device; a tensor is used as data
 (masks, ``index_select``), never read back to the host, except where
 ``decode_attention_ref`` picks its live cache prefix (CPU path only).
+
+The prefill, norm and matmul versions accumulate in fp32, or in fp64 for
+fp64 inputs (:func:`acc`), so the gradient tests can check them in fp64.
 """
 from __future__ import annotations
 
 import torch
 
 NEG_INF = -1e30
+
+
+def acc(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in its accumulation type: fp64 for fp64, else fp32."""
+    return t.to(torch.float64 if t.dtype == torch.float64 else torch.float32)
 
 
 def take_row(table: torch.Tensor, idx) -> torch.Tensor:
@@ -62,8 +70,8 @@ def flash_attention_dense_ref(q, k, v, *, causal: bool = True,
     G = Hq // Hkv
     scale = scale if scale is not None else d ** -0.5
     dev = q.device
-    qf = q.reshape(B, Hkv, G, Sq, d).float()
-    s = torch.einsum("bhgqd,bhkd->bhgqk", qf, k.float()) * scale
+    qf = acc(q.reshape(B, Hkv, G, Sq, d))
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qf, acc(k)) * scale
     mask = _attention_mask(torch.arange(Sq, device=dev),
                            torch.arange(Sk, device=dev), causal=causal,
                            window=window, kv_len=kv_len)
@@ -71,7 +79,7 @@ def flash_attention_dense_ref(q, k, v, *, causal: bool = True,
     p = torch.softmax(s, dim=-1)
     # rows with no valid key attend to nothing (match kernel semantics)
     p = p * mask.any(-1)[:, None]
-    o = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
+    o = torch.einsum("bhgqk,bhkd->bhgqd", p, acc(v))
     return o.reshape(B, Hq, Sq, d).to(v.dtype)
 
 
@@ -113,9 +121,9 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
     dev = q.device
     off_static = q_offset if isinstance(q_offset, int) else None
 
-    qf = q.reshape(B, Hkv, G, Sq, d).float()
-    kf = k.float()
-    vf = v.float()
+    qf = acc(q.reshape(B, Hkv, G, Sq, d))
+    kf = acc(k)
+    vf = acc(v)
 
     outs = []
     for qi in range(n_q):
@@ -125,9 +133,10 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
         if off_static is not None:
             lo, hi = _live_kv_range(off_static + q0, off_static + q1, n_k,
                                     kb, causal, window, kv_len)
-        m = torch.full((B, Hkv, G, q1 - q0), NEG_INF, device=dev)
-        l = torch.zeros((B, Hkv, G, q1 - q0), device=dev)
-        acc = torch.zeros((B, Hkv, G, q1 - q0, d), device=dev)
+        m = torch.full((B, Hkv, G, q1 - q0), NEG_INF, dtype=qf.dtype,
+                       device=dev)
+        l = torch.zeros((B, Hkv, G, q1 - q0), dtype=qf.dtype, device=dev)
+        o = torch.zeros((B, Hkv, G, q1 - q0, d), dtype=qf.dtype, device=dev)
         for ki in range(lo, hi):
             k0, k1 = ki * kb, min((ki + 1) * kb, Sk)
             s = torch.einsum("bhgqd,bhkd->bhgqk", qf[:, :, :, q0:q1],
@@ -142,10 +151,10 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
             p = torch.exp(s - m_new[..., None]) * mask
             corr = torch.exp(m - m_new)
             l = l * corr + p.sum(-1)
-            acc = acc * corr[..., None] + torch.einsum(
+            o = o * corr[..., None] + torch.einsum(
                 "bhgqk,bhkd->bhgqd", p, vf[:, :, k0:k1])
             m = m_new
-        outs.append(acc / torch.clamp(l, min=1e-30)[..., None])
+        outs.append(o / torch.clamp(l, min=1e-30)[..., None])
     o = torch.cat(outs, dim=3)
     return o.reshape(B, Hq, Sq, d).to(v.dtype)
 
@@ -229,9 +238,9 @@ def decode_attention_ref(q, k_cache, v_cache, index, *, window: int = 0,
 def subnet_rmsnorm_ref(x, gamma_table, subnet_id, eps: float = 1e-5):
     """RMSNorm with the per-subnet gain row (SubnetNorm)."""
     gamma = take_row(gamma_table, subnet_id)
-    xf = x.float()
+    xf = acc(x)
     y = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
-    return (y * gamma.float()).to(x.dtype)
+    return (y * gamma.to(xf.dtype)).to(x.dtype)
 
 
 def add_subnet_rmsnorm_ref(x, delta, gamma_table, subnet_id,

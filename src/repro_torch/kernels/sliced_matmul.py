@@ -50,6 +50,7 @@ import torch
 from repro_torch import compat
 from repro_torch.kernels import build
 from repro_torch.kernels.decode_attention import _sm_count
+from repro_torch.kernels.ref import acc
 
 NAME = "sliced_matmul"
 # the launch count of the form over a stack of experts
@@ -90,12 +91,12 @@ def sliced_matmul_plain(x, w, active_in, active_out, *, segments: int = 1):
     K) with a stack w: (E, K, N); widths None (the full width), ints or 0-d
     integer tensors (used as data). Channel k of x counts when ``k % (K //
     segments) < active_in``; output columns at or past ``active_out`` are
-    0. fp32 accumulation, output in x's dtype."""
+    0. fp32 accumulation (fp64 for fp64), output in x's dtype."""
     K, N = w.shape[-2:]
     if active_in is not None:
         keep = (torch.arange(K, device=x.device) % (K // segments)) < active_in
         x = x * keep.to(x.dtype)
-    y = x.float() @ w.float()
+    y = acc(x) @ acc(w)
     if active_out is not None:
         y = y * (torch.arange(N, device=x.device) < active_out).to(y.dtype)
     return y.to(x.dtype)

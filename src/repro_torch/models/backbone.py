@@ -18,13 +18,20 @@ weights each time) runs after every unit whose gate is on and whose index
 ``r`` in its stage has ``r % period == period - 1``. Each invocation has
 a KV cache of its own: the decode walk counts the invocations that ran
 (a host int, since the gates are host numpy) and takes that slot.
+
+For training, ``backbone_forward(remat=True)`` recomputes each repeat unit
+(with the shared block after it) in the backward pass instead of keeping
+its activations, as the reference wraps each unit in ``jax.checkpoint``;
+``moe_groups`` sets the token groups of every MoE block's dispatch.
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Any, Dict
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.operators import layer_select
@@ -145,16 +152,19 @@ def _settle(pair):
     return x if delta is None else x + delta
 
 
-def _ffn(kind: str, p, cfg: ArchConfig, xd, ctrl, slice_mode: str):
+def _ffn(kind: str, p, cfg: ArchConfig, xd, ctrl, slice_mode: str,
+         moe_groups: int = 1):
     """An ``mlp`` or ``moe`` block on the pair ``xd = (x, delta)``; decode
     calls it on ``(B, 1, d)``, so a MoE block routes B tokens."""
-    block = (moe_mod.moe_block_pending if kind == "moe"
-             else ffn_mod.mlp_block_pending)
-    return block(p, cfg, *xd, ctrl, slice_mode=slice_mode)
+    if kind == "moe":
+        return moe_mod.moe_block_pending(p, cfg, *xd, ctrl,
+                                         slice_mode=slice_mode,
+                                         n_groups=moe_groups)
+    return ffn_mod.mlp_block_pending(p, cfg, *xd, ctrl, slice_mode=slice_mode)
 
 
 def _block(kind: str, p, cfg: ArchConfig, xd, ctrl, positions,
-           slice_mode: str, attn_impl):
+           slice_mode: str, attn_impl, moe_groups: int = 1):
     """One block of a prefill walk on the pair ``xd``. Each block function
     is looked up on its module at the call, so a wrapper put there is
     seen."""
@@ -169,12 +179,13 @@ def _block(kind: str, p, cfg: ArchConfig, xd, ctrl, positions,
     elif kind == "slstm":
         block = xlstm_mod.slstm_block_pending
     else:
-        return _ffn(kind, p, cfg, xd, ctrl, slice_mode)
+        return _ffn(kind, p, cfg, xd, ctrl, slice_mode, moe_groups)
     return block(p, cfg, *xd, ctrl, slice_mode=slice_mode)
 
 
 def backbone_forward(params, cfg: ArchConfig, x, ctrl, positions, *,
-                     slice_mode: str = "mask", attn_impl=None):
+                     slice_mode: str = "mask", remat: bool = False,
+                     moe_groups: int = 1, attn_impl=None):
     """x: (B, S, d) -> (B, S, d). ``attn_impl=None`` takes the kernel
     entry point for x's device; pass one to pin an impl (tests).
 
@@ -182,29 +193,41 @@ def backbone_forward(params, cfg: ArchConfig, x, ctrl, positions, *,
     is added to the residual stream by the next block's pre-norm, in the
     same launch (see ``attention.attention_block_pending``); a gated-off
     unit passes the pair on, and the last pending add is made once before
-    returning."""
+    returning. ``remat``: each live unit, the shared block after it
+    included, runs under ``torch.utils.checkpoint`` (non-reentrant), so
+    the backward recomputes its activations. ``moe_groups``: the token
+    groups of each MoE block (``moe.moe_block``'s ``n_groups``)."""
     _check_ported(cfg)
     gates = _gates(cfg, ctrl)
     offset = 0
     pair = (x, None)
     for si, stage in enumerate(cfg.stages):
-        sp = params["stages"][si]
+        # each stacked leaf split into its layers once: under autograd the
+        # layers' gradients are stacked in one op, where indexing layer by
+        # layer would add a zero-filled gradient of the whole stack per layer
+        sp = {slot: {k: v.unbind(0) for k, v in leaves.items()}
+              for slot, leaves in params["stages"][si].items()}
         for r in range(stage.repeat):
-            def unit(xd, r=r, stage=stage, sp=sp):
+            def unit(x, delta, r=r, stage=stage, sp=sp):
+                xd = (x, delta)
                 for j, kind in enumerate(stage.pattern):
-                    xd = _block(kind, unstack(sp[_slot(j, kind)], r), cfg,
-                                xd, ctrl, positions, slice_mode, attn_impl)
+                    layer = {k: v[r] for k, v in sp[_slot(j, kind)].items()}
+                    xd = _block(kind, layer, cfg, xd, ctrl, positions,
+                                slice_mode, attn_impl, moe_groups)
+                if _runs_shared(params, cfg, r):
+                    xd = attn_mod.attention_block_pending(
+                        params["shared_attn"], cfg, *xd, ctrl, positions,
+                        slice_mode=slice_mode, attn_impl=attn_impl)
+                    if "shared_mlp" in params:
+                        xd = _ffn("mlp", params["shared_mlp"], cfg, xd,
+                                  ctrl, slice_mode)
                 return xd
 
-            gate = gates[offset + r]
-            pair = layer_select(gate, unit, pair)
-            if gate and _runs_shared(params, cfg, r):
-                pair = attn_mod.attention_block_pending(
-                    params["shared_attn"], cfg, *pair, ctrl, positions,
-                    slice_mode=slice_mode, attn_impl=attn_impl)
-                if "shared_mlp" in params:
-                    pair = _ffn("mlp", params["shared_mlp"], cfg, pair,
-                                ctrl, slice_mode)
+            if remat:
+                run = partial(checkpoint, unit, use_reentrant=False)
+            else:
+                run = unit
+            pair = layer_select(gates[offset + r], lambda xd: run(*xd), pair)
         offset += stage.repeat
     return _settle(pair)
 

@@ -103,3 +103,48 @@ def pre_norm(p: Params, cfg, x, delta, ctrl):
         return x, ops.subnet_norm(x, p["norm_gamma"], ctrl["subnet_id"], **kw)
     return ops.subnet_norm(x, p["norm_gamma"], ctrl["subnet_id"],
                            residual=delta, **kw)
+
+
+def tree_flatten_with_path(tree, path: Tuple = ()) -> list:
+    """``(path, leaf)`` of every leaf of a tree of dicts, lists and tuples,
+    in the order ``jax.tree_util`` flattens one: dict keys sorted, items
+    in order. A path is the tuple of keys and indices down to the leaf."""
+    if isinstance(tree, dict):
+        return [pl for k in sorted(tree)
+                for pl in tree_flatten_with_path(tree[k], path + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [pl for i, v in enumerate(tree)
+                for pl in tree_flatten_with_path(v, path + (i,))]
+    return [(path, tree)]
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of ``tree`` in :func:`tree_flatten_with_path`'s order."""
+    return [leaf for _, leaf in tree_flatten_with_path(tree)]
+
+
+def tree_unflatten(tree, leaves):
+    """A tree of ``tree``'s structure whose leaves are ``leaves``, taken in
+    :func:`tree_flatten_with_path`'s order."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            out = {k: build(t[k]) for k in sorted(t)}
+            return {k: out[k] for k in t}
+        if isinstance(t, (list, tuple)):
+            return type(t)(build(v) for v in t)
+        return next(it)
+
+    out = build(tree)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the tree holds")
+    return out
+
+
+def tree_map(fn: Callable, tree, *rest):
+    """``fn`` over the leaves of ``tree`` and, leaf for leaf, of the trees
+    in ``rest`` (of the same structure)."""
+    others = [tree_leaves(t) for t in rest]
+    return tree_unflatten(tree, [fn(leaf, *(o[i] for o in others))
+                                 for i, leaf in enumerate(tree_leaves(tree))])

@@ -113,8 +113,11 @@ def default_positions(cfg: ArchConfig, batch: int, seq: int, device):
 
 
 def hidden_states(params, cfg: ArchConfig, batch: Dict[str, Any], ctrl, *,
-                  slice_mode="mask", attn_impl=None):
-    """Backbone output (B, S, d) for ``batch["tokens"]`` (B, S)."""
+                  slice_mode="mask", remat=False, moe_groups=1,
+                  attn_impl=None):
+    """Backbone output (B, S, d) for ``batch["tokens"]`` (B, S);
+    ``remat`` and ``moe_groups`` as ``backbone.backbone_forward`` takes
+    them."""
     _check_frontend(cfg)
     dev = _device(params)
     if slice_mode == "switch":
@@ -127,15 +130,42 @@ def hidden_states(params, cfg: ArchConfig, batch: Dict[str, Any], ctrl, *,
     positions = (default_positions(cfg, B, S, dev) if positions is None
                  else torch.as_tensor(positions, device=dev))
     return bb.backbone_forward(params["backbone"], cfg, x, ctrl, positions,
-                               slice_mode=slice_mode, attn_impl=attn_impl)
+                               slice_mode=slice_mode, remat=remat,
+                               moe_groups=moe_groups, attn_impl=attn_impl)
 
 
 def forward(params, cfg: ArchConfig, batch, ctrl, *, slice_mode="mask",
-            attn_impl=None):
+            remat=False, moe_groups=1, attn_impl=None):
     """Logits (B, S, vocab) for ``batch["tokens"]`` (B, S)."""
     x = hidden_states(params, cfg, batch, ctrl, slice_mode=slice_mode,
+                      remat=remat, moe_groups=moe_groups,
                       attn_impl=attn_impl)
     return head_logits(params, cfg, x, ctrl)
+
+
+def loss_fn(params, cfg: ArchConfig, batch, ctrl, *, slice_mode="mask",
+            remat=False, moe_groups=1, z_loss: float = 1e-4):
+    """Mean next-token cross-entropy of ``batch["labels"]`` (B, S) over the
+    positions of ``batch["loss_mask"]`` (all of them when absent), from
+    fp32 logits, plus ``z_loss`` times the mean squared log-partition
+    (port of ``repro.models.lm.loss_fn``)."""
+    dev = _device(params)
+    logits = forward(params, cfg, batch, ctrl, slice_mode=slice_mode,
+                     remat=remat, moe_groups=moe_groups).float()
+    labels = _tokens(batch["labels"], dev)
+    lse = torch.logsumexp(logits, dim=-1)
+    nll = lse - torch.gather(logits, -1, labels[..., None])[..., 0]
+    mask = batch.get("loss_mask")
+    if mask is None:
+        mask = torch.ones_like(nll)
+    else:
+        mask = torch.as_tensor(np.asarray(mask) if not isinstance(
+            mask, torch.Tensor) else mask).to(dev, torch.float32)
+    denom = torch.clamp(mask.sum(), min=1.0)
+    loss = (nll * mask).sum() / denom
+    if z_loss:
+        loss = loss + z_loss * ((lse * mask) ** 2).sum() / denom
+    return loss
 
 
 def prefill(params, cfg: ArchConfig, batch, ctrl, *, slice_mode="mask"):

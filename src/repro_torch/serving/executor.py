@@ -372,16 +372,20 @@ def free_bytes(device: torch.device) -> int:
     return os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
 
 
-def check_fits(cfg: ArchConfig, available: float) -> None:
-    """Refuse (MemoryError) a model whose weights exceed ``available``
-    bytes."""
-    need = lm.param_bytes(cfg)
+def check_fits(cfg: ArchConfig, available: float,
+               need: Optional[float] = None,
+               what: Optional[str] = None) -> None:
+    """Refuse (MemoryError) a run that needs more than ``available`` bytes:
+    by default the model's weights; a trainer passes ``need`` (weights,
+    gradients and moments) and ``what`` names them."""
+    if need is None:
+        need, what = lm.param_bytes(cfg), f"{cfg.dtype} weights"
     if need > available:
         raise MemoryError(
             f"{cfg.name} at {sum(s.repeat for s in cfg.stages)} repeat "
-            f"units holds {need / 1e9:.1f} GB of {cfg.dtype} weights, more "
-            f"than the {available / 1e9:.1f} GB free on the device; cut "
-            f"the depth with --units")
+            f"units holds {need / 1e9:.1f} GB of {what}, more than the "
+            f"{available / 1e9:.1f} GB free on the device; cut the depth "
+            f"with --units")
 
 
 def serving_config(arch: str, device="cuda", size: Optional[str] = None,

@@ -174,6 +174,42 @@ print("ok")
     assert proc.stdout.strip().splitlines()[-1] == "ok"
 
 
+def test_training_modules_import_without_jax_or_repro(tmp_path):
+    """The training slice's modules (the kernels' autograd Functions, the
+    optimizer, supernet step, checkpoints, trainer and the launcher)
+    import under the blocker, and there the reduced qwen2-1.5b takes two
+    sandwich steps on the CPU, saves, and restores bit for bit."""
+    child = _CHILD.split("import repro_torch")[0] + r"""
+import torch
+from repro_torch.kernels import autograd
+from repro_torch.launch import train
+from repro_torch.models.common import tree_leaves
+from repro_torch.training import (checkpoint, data, optimizer, supernet,
+                                  trainer)
+cfg = train.serving_config("qwen2-1.5b", "cpu")
+tr = trainer.Trainer(
+    cfg, optimizer.AdamWConfig(lr=1e-3),
+    trainer.TrainerConfig(total_steps=2, ckpt_every=2, ckpt_dir={ckpt!r}),
+    data.SyntheticTask(cfg.vocab_size, 8, 2), device="cpu")
+st = tr.run(tr.resume_or_init(0))
+assert st.step == 2 and all(l == l for l in st.losses)
+back, extra = checkpoint.restore({ckpt!r}, {{"params": st.params}})
+assert extra == {{"step": 2}}
+assert all(torch.equal(a, b) for a, b in zip(tree_leaves(back),
+                                             tree_leaves(st.params)))
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+assert not leaked, leaked
+print("ok")
+"""
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         child.format(blocked=BLOCKED, ckpt=str(tmp_path))],
+        cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+        capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "ok"
+
+
 def test_no_source_names_jax_or_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py", ROOT / "tools" / "flash_bench.py",

@@ -896,3 +896,141 @@ def _executor_builds_nothing_after_warmup(cuda, slice_mode):
     for name in ("flash_attention", "subnet_rmsnorm", "decode_attention"):
         assert launches.get(name, 0) > 0, name
     assert (launches.get("sliced_matmul", 0) > 0) == (slice_mode == "switch")
+
+
+# --------------------------------------------------------------------------
+# the kernels under autograd: each Function's backward against
+# torch.autograd of the plain version, on the card
+# --------------------------------------------------------------------------
+
+
+def _grads_match(outs, want_outs, inputs, gen):
+    """The gradients through the kernels' Functions (``outs``) equal
+    torch.autograd's through the plain versions (``want_outs``) within the
+    bf16 tolerance, for one seeded output gradient."""
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    want_outs = want_outs if isinstance(want_outs, tuple) else (want_outs,)
+    assert all(o.grad_fn is not None for o in outs)
+    dys = [torch.randn(o.shape, generator=gen, device=o.device).to(o.dtype)
+           for o in outs]
+    got = torch.autograd.grad(outs, inputs, dys)
+    want = torch.autograd.grad(want_outs, inputs, dys)
+    for g, w in zip(got, want):
+        scale = w.float().abs().max().item()
+        torch.testing.assert_close(g.float(), w.float(), rtol=2e-2,
+                                   atol=2e-2 * max(scale, 1.0))
+    return got
+
+
+def _leaf(gen, *shape, dev, scale=1.0, dtype=torch.bfloat16):
+    return (torch.randn(shape, generator=gen, device=dev) * scale
+            ).to(dtype).requires_grad_()
+
+
+@pytest.mark.parametrize("head_width", [None, 6])
+def test_flash_attention_backward_matches_plain(cuda, head_width):
+    """(8, 12/2, 64, 128), launch/train's shape; inactive heads get no
+    gradient."""
+    from repro_torch.kernels import ops as kops
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    q = _leaf(gen, 8, 12, 64, 128, dev=cuda)
+    k = _leaf(gen, 8, 2, 64, 128, dev=cuda)
+    v = _leaf(gen, 8, 2, 64, 128, dev=cuda)
+    hw = None if head_width is None else _i32(head_width, cuda)
+    dq, _, _ = _grads_match(
+        kops.flash_attention(q, k, v, head_width=hw),
+        fa.flash_attention_plain(q, k, v, head_width=hw), (q, k, v), gen)
+    if head_width is not None:
+        assert (dq[:, ~ref.head_active(12, 2, head_width, cuda)] == 0).all()
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_rmsnorm_backward_matches_plain(cuda, fused):
+    """512 rows x 1536: the gain gradient in row ``subnet_id`` only."""
+    from repro_torch.kernels import ops as kops
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    x = _leaf(gen, 512, 1536, dev=cuda)
+    gamma = (1 + 0.1 * torch.randn((18, 1536), generator=gen, device=cuda)
+             ).requires_grad_()
+    sid = _i32(7, cuda)
+    if fused:
+        delta = _leaf(gen, 512, 1536, dev=cuda)
+        inputs = (x, delta, gamma)
+        got = _grads_match(
+            kops.add_subnet_rmsnorm(x, delta, gamma, sid),
+            rn.add_subnet_rmsnorm_plain(x, delta, gamma, sid), inputs, gen)
+    else:
+        inputs = (x, gamma)
+        got = _grads_match(kops.subnet_rmsnorm(x, gamma, sid),
+                           rn.subnet_rmsnorm_plain(x, gamma, sid), inputs,
+                           gen)
+    dgamma = got[-1]
+    assert (dgamma[torch.arange(18, device=cuda) != 7] == 0).all()
+
+
+# (rows, K, N, active_in, active_out, segments): FFN up and down and the
+# GQA output projection of qwen2-1.5b at B = 8, S = 64, full and half width
+SLICED_GRAD_CASES = [(512, 1536, 8960, None, 8960, 1),
+                     (512, 1536, 8960, None, 4480, 1),
+                     (512, 8960, 1536, 4480, None, 1),
+                     (512, 1536, 1536, 768, None, 2),
+                     (512, 1536, 1536, 384, None, 2)]
+
+
+@pytest.mark.parametrize("M,K,N,ai,ao,segments", SLICED_GRAD_CASES)
+def test_sliced_matmul_backward_matches_plain(cuda, M, K, N, ai, ao,
+                                              segments):
+    from repro_torch.kernels import ops as kops
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    x = _leaf(gen, M, K, dev=cuda)
+    w = _leaf(gen, K, N, dev=cuda, scale=K ** -0.5)
+    a = None if ai is None else _i32(ai, cuda)
+    b = None if ao is None else _i32(ao, cuda)
+    dx, dw = _grads_match(
+        kops.sliced_matmul(x, w, a, b, segments=segments),
+        sm.sliced_matmul_plain(x, w, a, b, segments=segments), (x, w), gen)
+    if ao is not None:
+        assert (dw[:, ao:] == 0).all()
+
+
+def test_decode_attention_refuses_grad(cuda):
+    """decode_attention has no backward: under grad with an input that
+    requires grad it raises, and under no_grad it runs."""
+    from repro_torch.kernels import ops as kops
+    gen = torch.Generator(device=cuda).manual_seed(14)
+    q = _leaf(gen, 2, 12, 1, 128, dev=cuda)
+    cache = torch.randn((2, 2, 16, 128), generator=gen, device=cuda
+                        ).bfloat16()
+    with pytest.raises(RuntimeError, match="no backward"):
+        kops.decode_attention(q, cache, cache, _i32(3, cuda))
+    with torch.no_grad():
+        assert kops.decode_attention(q, cache, cache, _i32(3, cuda)
+                                     ).shape == q.shape
+
+
+def test_training_step_on_card(cuda):
+    """Two sandwich steps of a small bf16 model on the card, one in each
+    WeightSlice mode: finite loss, the kernels launched, and every leaf
+    reached by a gradient."""
+    from repro_torch import compat
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.training import data, optimizer as opt, supernet
+    from repro_torch.training.trainer import Trainer, TrainerConfig
+    cfg = _small_cfg()
+    task = data.SyntheticTask(cfg.vocab_size, 32, 4, order=1)
+    ocfg = opt.AdamWConfig(lr=1e-3)
+    st = Trainer(cfg, ocfg, TrainerConfig(), task, device=cuda).init_state(0)
+    params, state = st.params, st.opt_state
+    for i, mode in enumerate(("mask", "switch")):
+        step = supernet.make_train_step(cfg, ocfg, slice_mode=mode)
+        compat.reset_launch_counts()
+        batch = {k: torch.as_tensor(v, device=cuda)
+                 for k, v in task.batch(i).items()}
+        params, state, m = step(params, state, batch,
+                                torch.Generator().manual_seed(i))
+        assert torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])
+        n = compat.launch_counts()
+        assert n.get("flash_attention", 0) > 0
+        assert n.get("subnet_rmsnorm", 0) > 0
+        assert (n.get("sliced_matmul", 0) > 0) == (mode == "switch")
+    assert all(p.requires_grad for p in tree_leaves(params))

@@ -29,7 +29,7 @@ Phases, one result line each:
    bitwise equal and inactive heads exactly 0, then device ms at S = 16,
    256 and 2048 at full and half head width against SDPA and the bound,
    and the wrapper's host us at S = 16. ``decode_attention`` runs 256
-   cases (G = 1, 5, 6, 8; B = 1, 8; Smax = 16, 32, 256, 2048; every index
+   cases (G = 1, 5, 6, 7, 8; B = 1, 8; Smax = 16, 32, 256, 2048; every index
    class; window 0 and 64) with two launches bitwise equal, must be one
    device kernel a call allocating nothing but its output, then device ms
    at Smax 16, 256 and 2048 against masked SDPA and the bound, and host
@@ -41,8 +41,9 @@ Phases, one result line each:
    ``csrc/hopper.cuh`` (on a card with the recorded SM count). Both
    attention kernels also run at the heads of the other configs
    (``CONFIG_HEADS``: head_dim 80 under MHA, 120 with G = 4, 128 with
-   G = 5 and G = 4): the same case checks, and device ms beside SDPA and
-   the bound counted at the real head_dim. ``sliced_matmul`` over a stack
+   G = 5, 4 and 7, 64 under MHA; decode's cases at d = 64, 80 and 120
+   over G = 1, 4, 5, 7): the same case checks, and device ms beside SDPA
+   and the bound counted at the real head_dim. ``sliced_matmul`` over a stack
    of experts (``EXPERT_STACKS``: mixtral's 8 experts of 4096 x 14336 at
    C = 8 and 40 rows, llama4's 128 of 5120 x 8192 at C = 8; up and down
    at each width): against the plain version, zeros past active_out,
@@ -141,10 +142,33 @@ Phases, one result line each:
    uninterrupted run's losses, save and restore seconds and bytes; (e)
    ``python -m repro_torch.launch.train --units 2 --steps 4 --ckpt-every
    2`` in a subprocess prints "done: step 4".
+13. Conv: the paper's own OFA-ResNet supernet at full width (widths
+   256-2048, 4 units a stage, 224 x 224, 1000 classes, fp32 with TF32
+   off; no kernel of the port is on its path): all 27 subnets calibrated
+   on one batch X of 32 images, each one's calibrated walk on X equal to
+   its batch-statistics walk (1e-3 of max |logit|), the smallest, a
+   middle and the largest subnet at B = 2 equal to the CPU's fp32 walk,
+   every subnet at B = 32 with host wall, device ms and images a second
+   (no parameter moves, no memory growth after the first walk, the
+   shallowest subnet's conv calls fewer than the deepest's by the
+   profiler), the norm tables' bytes against the shared weights', and
+   the analytic profile's latency beside the card's.
+14. Frontends: musicgen-medium (48 layers, MHA at head_dim 64,
+   sinusoidal positions, layernorm, GELU) and qwen2-vl-7b (28 layers,
+   G = 7, M-RoPE over three distinct position streams) at full width and
+   depth, in turn, through ``lm.prefill`` / ``lm.decode_step``: the
+   prefill from ``embeds`` (B = 8, S = 16) and 8 greedy decode steps on
+   tokens of each Pareto subnet (16 of musicgen's, 18 of qwen2-vl's) in
+   mask and in switch mode,
+   no build after warmup, each walk held to the fp32 oracle as phase 8
+   holds its configs, flash and decode attention, ``sliced_matmul`` and
+   (qwen2-vl) the norm launched; each block against its switch twin; the
+   trace of a prefill and a decode step; the 2-layer reference.
 
 Each phase prints its seconds. Then one JSON line with every kernel's
-numbers (the attention kernels' also at each head_dim of phase 8; the
-launches include phase 12's training steps), and last the device line.
+numbers (the attention kernels' also at each head_dim of phases 8-10 and
+14; the launches include phase 12's training steps and phase 14's walks),
+and last the device line.
 Exits non-zero, with no result line, when CUDA is unavailable, the port is
 missing, or any phase fails.
 """
@@ -386,7 +410,8 @@ def phase_kernels(torch, card):
     results["flash_attention"]["head_dims"] = {
         key: _flash_cases(torch, card, randn, heads, key)
         for key, heads in CONFIG_HEADS.items()}
-    errs = _decode_checks(torch, randn, (80, 120), (1, 4, 5), (16, 256, 4096))
+    errs = _decode_checks(torch, randn, (64, 80, 120), (1, 4, 5, 7),
+                          (16, 256, 4096))
     results["decode_attention"]["head_dims"] = {
         key: dict(_decode_rows(torch, card, randn, heads, key,
                                ((16, 3), (256, 255), (4096, 4095))),
@@ -402,7 +427,9 @@ def phase_kernels(torch, card):
 CONFIG_HEADS = {"80": (80, 32, 32),         # stablelm-3b, MHA
                 "120": (120, 32, 8),        # h2o-danube-3-4b, G = 4
                 "128-G5": (128, 40, 8),     # qwen2.5-14b, llama4, G = 5
-                "128-G4": (128, 32, 8)}     # mixtral-8x7b, G = 4
+                "128-G4": (128, 32, 8),     # mixtral-8x7b, G = 4
+                "64": (64, 24, 24),         # musicgen-medium, MHA
+                "128-G7": (128, 28, 4)}     # qwen2-vl-7b, G = 7
 
 
 def flash_bound(card, B: int, Hq: int, Hkv: int, S: int, hd: int):
@@ -620,12 +647,12 @@ def _decode_checks(torch, randn, head_dims, Gs, smaxes):
 
 
 def _decode_cases(torch, card, randn):
-    """decode_attention at d = 128 over G = 1, 5, 6, 8 (2 kv heads),
+    """decode_attention at d = 128 over G = 1, 5, 6, 7, 8 (2 kv heads),
     Smax = 16, 32, 256 and 2048 (:func:`_decode_checks`), then at
     qwen2-1.5b's heads (12 over 2), B = 8, :func:`_decode_rows` at Smax 16
     (index 3, the trace's decode step), 256 (index 255) and 2048 (index
     2047 and 1023). Returns the Smax = 256 row (the headline)."""
-    errs = _decode_checks(torch, randn, (128,), (1, 5, 6, 8),
+    errs = _decode_checks(torch, randn, (128,), (1, 5, 6, 7, 8),
                           (16, 32, 256, 2048))
     return dict(_decode_rows(torch, card, randn, (128, 12, 2), None,
                              ((16, 3), (256, 255), (2048, 2047),
@@ -1217,8 +1244,9 @@ def to_cpu(tree, dtype=None):
 def reference_check(torch, cut, tag: str = "reference",
                     blockwise: bool = False):
     """Kernels (bf16, card) against the plain path (fp32, CPU) on a
-    ``cut`` of a few units (:func:`depth_cut`): prefill logits (B=2, S=16)
-    and 4 decode steps, for the first and the last Pareto subnet, in mask
+    ``cut`` of a few units (:func:`depth_cut`): prefill logits (B=2, S=16;
+    from :func:`embed_batch` for an embed-frontend config) and 4 decode
+    steps, for the first and the last Pareto subnet, in mask
     and in switch mode, within 2e-2 of max |logit|. With ``blockwise``
     (the SSM family: its random-weight blocks amplify bf16 rounding, so
     that the plain path's own bf16 walk strays past 2e-2 of the fp32 walk
@@ -1241,6 +1269,9 @@ def reference_check(torch, cut, tag: str = "reference",
     blocks = BlockReference(tag) if blockwise else None
     rng = np.random.default_rng(3)
     toks = rng.integers(0, cfg.vocab_size, (2, 16)).astype(np.int32)
+    # an embed-frontend config prefills from embeds (decode takes tokens)
+    batch = (embed_batch(torch, cfg, 2, 16, seed=3)
+             if cfg.frontend == "embed" else {"tokens": toks})
     pts = pareto_subnets(cfg)
     worst = {"mask": 0.0, "switch": 0.0}
     floor = {"mask": 0.0, "switch": 0.0}
@@ -1270,12 +1301,12 @@ def reference_check(torch, cut, tag: str = "reference",
         for mode, p in itertools.product(worst, (pts[0], pts[-1])):
             ctrl = sn.make_control(cfg, p.sub)
             got, want = both(
-                lambda: lm.forward(gpu, cfg, {"tokens": toks}, ctrl,
+                lambda: lm.forward(gpu, cfg, batch, ctrl,
                                    slice_mode=mode).float().cpu(),
-                lambda: lm.forward(cpu, cfg32, {"tokens": toks}, ctrl,
+                lambda: lm.forward(cpu, cfg32, batch, ctrl,
                                    slice_mode=mode))
             want16 = None if cpu16 is None else lm.forward(
-                cpu16, cfg, {"tokens": toks}, ctrl, slice_mode=mode)
+                cpu16, cfg, batch, ctrl, slice_mode=mode)
             check(got, want, want16, mode, "prefill logits")
             cg = lm.init_cache(cfg, 2, 16, device="cuda")
             cc = lm.init_cache(cfg32, 2, 16, device="cpu")
@@ -2104,9 +2135,12 @@ def dispatch_trace(torch, ex, idx, toks):
                 device_ms_per_layer=us / n / 1e3 if us else "not measured")
 
 
-def fp32_oracle(torch, params, cfg, toks, ctrl, routes=(), flips=None):
-    """The mask-mode logits of ``toks`` at every position in fp32 on the
-    card: each layer's weights upcast as the walk reaches it (the bf16
+def fp32_oracle(torch, params, cfg, toks, ctrl, routes=(), flips=None,
+                embeds=None, positions=None):
+    """The mask-mode logits of ``toks`` (or of ``embeds``, (B, S, d), read
+    in the table's type as the walk reads them, at ``positions`` if given)
+    at every position in fp32 on the card, with sinusoidal positions where
+    the config has them: each layer's weights upcast as the walk reaches it (the bf16
     tree stays as it is), the plain attention, the norm kernel's fp32
     form, fp32 cuBLAS products with TF32 off; the Mamba2, mLSTM and sLSTM
     blocks (fp32 inside already) on the upcast weights, and zamba2's
@@ -2138,10 +2172,19 @@ def fp32_oracle(torch, params, cfg, toks, ctrl, routes=(), flips=None):
               for key in ("shared_attn", "shared_mlp")
               if key in params["backbone"]}
     with torch.no_grad():
-        tokens = torch.as_tensor(toks, device=dev).long()
-        B, S = tokens.shape
-        positions = lm.default_positions(cfg, B, S, dev)
-        pair, offset = (params["embed"][tokens].float(), None), 0
+        if embeds is None:
+            x = params["embed"][torch.as_tensor(toks, device=dev).long()]
+        else:
+            x = torch.as_tensor(embeds, device=dev).to(params["embed"].dtype)
+        x = x.float()
+        B, S = x.shape[:2]
+        positions = (lm.default_positions(cfg, B, S, dev) if positions is None
+                     else torch.as_tensor(positions, device=dev))
+        if cfg.pos_embed == "sinusoidal":
+            x = x + lm.sinusoid_pos(positions if positions.dim() == 2
+                                    else positions[0], cfg.d_model,
+                                    torch.float32)
+        pair, offset = (x, None), 0
         for stage, sp in zip(cfg.stages, params["backbone"]["stages"]):
             for r in range(stage.repeat):
                 if not ctrl["layer_gate"][offset + r]:
@@ -3021,6 +3064,393 @@ def phase_train(torch):
 
 
 # --------------------------------------------------------------------------
+# phase 13: the paper's OFA-ResNet supernet
+# --------------------------------------------------------------------------
+
+CONV_BATCH = 32                    # calibration batch X and the timed walks
+CONV_TOL = 1e-3                    # of max |logit|
+
+
+def _conv_walk_calls(torch, fn) -> int:
+    """``aten::conv2d`` calls of one ``fn()``, from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(ev.name == "aten::conv2d" for ev in prof.events())
+
+
+def phase_conv(torch, card):
+    """Phase 13: full-width OFA-ResNet (widths 256-2048, 4 units a stage,
+    224 x 224 images, 1000 classes, fp32 with TF32 off, random weights
+    from a seeded generator). (a) Calibrate all 27 subnets on one batch X
+    of 32 images, then each subnet's inference walk on X with its
+    calibrated rows against the batch-statistics walk on X, within
+    ``CONV_TOL`` of max |logit|; (b) the smallest, a middle and the
+    largest subnet (by FLOPs) at B = 2 against the CPU's fp32 walk of the
+    same weights, tables and images, within ``CONV_TOL``; (c) every subnet
+    at B = 32: host wall, device ms and images a second, every parameter
+    keeping its storage and the allocated memory not growing after the
+    first walk; the shallowest and the deepest subnet's conv calls counted
+    by the profiler; (d) the norm tables' bytes against the shared
+    weights' (paper Fig. 4) and the analytic profile's latency of each
+    subnet at B = 32 beside the card's, printed only. Launches no kernel
+    of the port. Returns no launches."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core import calibrate
+    from repro_torch.core import operators as ops
+    from repro_torch.core import subnet as sn
+    from repro_torch.core.pareto import subnet_flops, subnet_weight_bytes
+    from repro_torch.models import convnet
+    from repro_torch.serving import profiler
+    cfg = get_config("ofa_resnet")
+    secs = {}
+    t0 = time.perf_counter()
+    params = convnet.init_convnet(
+        cfg, torch.Generator(device="cuda").manual_seed(13), "cuda")
+    leaves = list(_leaves(params))
+    ptrs = [t.data_ptr() for t in leaves]
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    X = torch.randn((CONV_BATCH, cfg.img_size, cfg.img_size, 3),
+                    generator=gen, device="cuda")
+    space = sn.enumerate_space(cfg)
+    ctrls = [convnet.make_conv_control(cfg, sub) for sub in space]
+    secs["init"] = time.perf_counter() - t0
+
+    # (a) calibration, then calibrated inference against batch statistics
+    t0 = time.perf_counter()
+    calibrate.calibrate_convnet(params, cfg, [X], space)
+    torch.cuda.synchronize()
+    secs["calibrate"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    calib_errs = []
+    with torch.no_grad():
+        for sub, ctrl in zip(space, ctrls):
+            got = convnet.convnet_forward(params, cfg, X, ctrl)
+            want, _ = convnet.convnet_forward(
+                params, cfg, X, ctrl, collect_stats=True,
+                static_gates=sn.stage_gates(cfg, sub.depth_frac))
+            calib_errs.append(rel_err(
+                got.cpu().numpy(), want.cpu().numpy(),
+                f"ofa_resnet subnet {sub.subnet_id}: calibrated walk against "
+                f"the batch-statistics walk", tol=CONV_TOL))
+    secs["calibrated_check"] = time.perf_counter() - t0
+
+    # (b) the card's fp32 walk against the CPU's
+    t0 = time.perf_counter()
+    by_flops = sorted(space, key=lambda s: subnet_flops(cfg, s))
+    picked = [by_flops[0], by_flops[len(by_flops) // 2], by_flops[-1]]
+    cpu = to_cpu(params)
+    x2 = X[:2]
+    cpu_errs = {}
+    with torch.no_grad():
+        for sub in picked:
+            ctrl = convnet.make_conv_control(cfg, sub)
+            cpu_errs[sub.subnet_id] = rel_err(
+                convnet.convnet_forward(params, cfg, x2, ctrl).cpu().numpy(),
+                convnet.convnet_forward(cpu, cfg, x2.cpu(), ctrl).numpy(),
+                f"ofa_resnet subnet {sub.subnet_id}: card against the CPU's "
+                f"fp32 walk", tol=CONV_TOL)
+    del cpu
+    secs["cpu_reference"] = time.perf_counter() - t0
+
+    # (c) every subnet at B = 32: actuation is data
+    t0 = time.perf_counter()
+    walks, grew = [], []
+    with torch.no_grad():
+        for i, (sub, ctrl) in enumerate(zip(space, ctrls)):
+            dctrl = ops.device_control(ctrl, "cuda")
+
+            def walk(dctrl=dctrl):
+                return convnet.convnet_forward(params, cfg, X, dctrl)
+            walk()
+            torch.cuda.synchronize()
+            if i == 0:
+                base = torch.cuda.memory_allocated()
+            grew.append(torch.cuda.memory_allocated() - base)
+            walls = []
+            for _ in range(3):
+                t1 = time.perf_counter()
+                walk()
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t1) * 1e3)
+            wall = float(np.median(walls))
+            dev_ms = device_ms(torch, walk, n=2)
+            lat = profiler.model_latency(profiler.RTX2080TI,
+                                         subnet_flops(cfg, sub),
+                                         subnet_weight_bytes(cfg, sub),
+                                         CONV_BATCH) * 1e3
+            walks.append(dict(
+                subnet=sub.subnet_id, key=list(sub.key()),
+                gflops_per_image=subnet_flops(cfg, sub) / 1e9,
+                host_wall_ms=wall, device_ms=dev_ms,
+                images_per_s=CONV_BATCH / wall * 1e3,
+                analytic_rtx2080ti_ms=lat))
+    secs["walks"] = time.perf_counter() - t0
+    if [t.data_ptr() for t in leaves] != ptrs:
+        fail("ofa_resnet: a parameter changed its storage while actuating")
+    if max(grew) > 0:
+        fail(f"ofa_resnet: allocated memory grew by {max(grew)} bytes after "
+             f"the first walk")
+    shallow = min(space, key=lambda s: (s.depth_frac, -s.subnet_id))
+    deep = max(space, key=lambda s: s.depth_frac)
+    calls = {}
+    with torch.no_grad():
+        for tag, sub in (("shallowest", shallow), ("deepest", deep)):
+            ctrl = convnet.make_conv_control(cfg, sub)
+            calls[tag] = _conv_walk_calls(
+                torch, lambda: convnet.convnet_forward(params, cfg, X, ctrl))
+    # the stem, then each live unit's three convs (four with the
+    # projection of a stage's first unit)
+    want = {tag: 1 + sum(4 + 3 * (max(1, math.ceil(s.repeat * sub.depth_frac))
+                                  - 1) for s in cfg.stages)
+            for tag, sub in (("shallowest", shallow), ("deepest", deep))}
+    if calls != want or not calls["shallowest"] < calls["deepest"]:
+        fail(f"ofa_resnet: conv calls a walk {calls}, expected {want}")
+    norm_b = calibrate.norm_table_bytes(params)
+    shared_b = calibrate.shared_weight_bytes(params)
+    for w in walks:
+        say("conv-walk", **w)
+    say("conv", arch=cfg.name, widths=list(cfg.conv_stage_widths),
+        units=[s.repeat for s in cfg.stages], img=cfg.img_size,
+        classes=cfg.n_classes, batch=CONV_BATCH, subnets=len(space),
+        parameters=sum(t.numel() for t in leaves),
+        calibrated_vs_batch_stats_max_rel_err=max(calib_errs),
+        card_vs_cpu_fp32_rel_err=cpu_errs, tol=f"{CONV_TOL} of max|logit|",
+        conv_calls=calls, memory_growth_bytes=max(grew),
+        norm_table_bytes=norm_b, shared_weight_bytes=shared_b,
+        shared_over_norm=shared_b / norm_b,
+        images_per_s=[min(w["images_per_s"] for w in walks),
+                      max(w["images_per_s"] for w in walks)],
+        seconds=secs)
+    del params, X
+    _free(torch)
+    return []
+
+
+# --------------------------------------------------------------------------
+# phase 14: the embed-frontend configs
+# --------------------------------------------------------------------------
+
+FRONTEND_CONFIGS = ("musicgen-medium", "qwen2-vl-7b")
+
+
+def embed_batch(torch, cfg, batch: int, seq: int, seed: int):
+    """A prefill batch of an ``embed``-frontend config, numpy: seeded
+    ``embeds`` (B, S, d) already rounded to bf16 (so that the card and an
+    fp32 walk read the same values) and, for M-RoPE, three distinct
+    position streams over a 4x4 grid of patches (t constant, h the row,
+    w the column); with equal streams M-RoPE is plain RoPE."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((batch, seq, cfg.d_model)
+                                             ).astype(np.float32))
+    out = {"embeds": x.bfloat16().float().numpy()}
+    if cfg.mrope_sections:
+        i = np.arange(seq)
+        pos = np.stack([np.full(seq, 5), i // 4, i % 4]).astype(np.int32)
+        out["positions"] = np.broadcast_to(pos[:, None],
+                                           (3, batch, seq)).copy()
+    return out
+
+
+def phase_frontends(torch, card):
+    """Phase 14: each of FRONTEND_CONFIGS at full width and depth, in
+    turn, freed before the next (:func:`frontend_run`). Returns the kernel
+    launches of each driven path."""
+    launches = []
+    for name in FRONTEND_CONFIGS:
+        t0 = time.perf_counter()
+        launches.append(frontend_run(torch, card, name))
+        _free(torch)
+        say("config-seconds", arch=name, seconds=time.perf_counter() - t0)
+    return launches
+
+
+def frontend_run(torch, card, name: str):
+    """One embed-frontend config at its published widths and depth, random
+    weights from a seeded generator, through ``lm.prefill`` and
+    ``lm.decode_step`` (the executor serves token-frontend LMs only, as
+    the reference's launcher does): (a) after one warmup walk in each
+    mode, with no build, the prefill (B = 8, S = 16) from ``embeds`` (for
+    qwen2-vl three distinct position streams) of each Pareto subnet in
+    mask and in switch mode, and 8 greedy decode steps on
+    tokens of each subnet in both modes (switch fed mask's tokens), every
+    walk held against the fp32 oracle: switch no further from it than mask
+    plus ``SWITCH_MARGIN``; flash and decode attention (at d = 64 or
+    G = 7), ``sliced_matmul`` and, for an RMSNorm config, the norm
+    launched; (b) every block of the same mask walks against its switch
+    twin (:class:`BlockShadow`); (c) the trace of a prefill and a decode
+    step of the largest subnet; (d) the 2-layer reference against the
+    plain path on the CPU in both modes. Returns the launches of (a)."""
+    import numpy as np
+    from repro_torch import compat
+    from repro_torch.configs import get_config
+    from repro_torch.core import operators as ops
+    from repro_torch.core import subnet as sn
+    from repro_torch.core.pareto import pareto_subnets
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import lm
+    cfg = get_config(name)
+    secs = {}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_model(cfg, torch.Generator(device="cuda").manual_seed(4),
+                           "cuda")
+    n_params = sum(t.numel() for t in _leaves(params))
+    B, S, steps = 8, 16, 8
+    batch = embed_batch(torch, cfg, B, S, seed=5)
+    gbatch = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+    toks = np.random.default_rng(6).integers(
+        0, cfg.vocab_size, (B, 1)).astype(np.int32)
+    pts = pareto_subnets(cfg)
+    ctrls = [ops.device_control(attn_mod.with_wo_width(
+        cfg, sn.make_control(cfg, p.sub)), "cuda") for p in pts]
+    ends = (0, len(pts) - 1)
+    secs["init"] = time.perf_counter() - t0
+
+    def greedy(ctrl, mode, feed=None):
+        """8 decode steps from an empty cache: the logits of each (numpy)
+        and the tokens fed, each step's argmax unless ``feed`` is given."""
+        cache = lm.init_cache(cfg, B, 32, device="cuda")
+        tok = torch.as_tensor(toks, device="cuda").long()
+        seq, out = [tok], []
+        for j in range(steps):
+            if feed is not None:
+                tok = feed[:, j:j + 1]
+            logits, cache = lm.decode_step(params, cfg, tok, ctrl, cache, j,
+                                           slice_mode=mode)
+            out.append(logits)
+            tok = logits[:, -1].argmax(-1, keepdim=True)
+            seq.append(tok)
+        return (torch.cat(seq[:steps], 1),
+                torch.cat(out, 1).float().cpu().numpy())
+
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for mode in ("mask", "switch"):         # warmup: every entry once
+            lm.prefill(params, cfg, gbatch, ctrls[-1], slice_mode=mode)
+            greedy(ctrls[-1], mode)
+        torch.cuda.synchronize()
+        compat.reset_launch_counts()
+        with compat.BuildCounter() as bc:
+            prefills = {mode: [lm.prefill(params, cfg, gbatch, c,
+                                          slice_mode=mode
+                                          ).float().cpu().numpy()[:, -1]
+                               for c in ctrls]
+                        for mode in ("mask", "switch")}
+            decoded = []
+            for c in ctrls:
+                seq, got_m = greedy(c, "mask")
+                _, got_s = greedy(c, "switch", feed=seq)
+                decoded.append((seq, got_m, got_s))
+            torch.cuda.synchronize()
+        launches = compat.launch_counts()
+    if bc.count:
+        fail(f"{name}: {bc.count} kernel builds after warmup")
+    rms = cfg.norm == "rmsnorm"
+    for kernel in ("flash_attention", "decode_attention", "sliced_matmul") \
+            + (("subnet_rmsnorm",) if rms else ()):
+        if launches.get(kernel, 0) <= 0:
+            fail(f"{name}: {kernel} never launched in the walks")
+    errs = {"prefill": {k: [] for k in ("switch_vs_mask", "mask_vs_fp32",
+                                        "switch_vs_fp32")},
+            "decode": {k: [] for k in ("switch_vs_mask", "mask_vs_fp32",
+                                       "switch_vs_fp32")}}
+    gaps = []
+
+    def hold(kind, what, sw, mk, ref):
+        e = {key: rel_err(a, b, f"{name} {what} {key}", tol=float("inf"))
+             for key, a, b in (("switch_vs_mask", sw, mk),
+                               ("mask_vs_fp32", mk, ref),
+                               ("switch_vs_fp32", sw, ref))}
+        for key, v in e.items():
+            errs[kind][key].append(v)
+        gaps.append(e["switch_vs_fp32"] - e["mask_vs_fp32"])
+        if not e["switch_vs_fp32"] <= e["mask_vs_fp32"] + SWITCH_MARGIN:
+            fail(f"{name}: switch {what} is {e['switch_vs_fp32']} of "
+                 f"max|logit| off the fp32 oracle, mask {e['mask_vs_fp32']}")
+
+    for i, c in enumerate(ctrls):
+        ref = fp32_oracle(torch, params, cfg, None, c,
+                          embeds=gbatch["embeds"],
+                          positions=gbatch.get("positions"))[:, -1]
+        hold("prefill", f"prefill subnet {i}", prefills["switch"][i],
+             prefills["mask"][i], ref)
+        seq, got_m, got_s = decoded[i]
+        ref = fp32_oracle(torch, params, cfg, seq, c)
+        for j in range(steps):
+            hold("decode", f"decode subnet {i} step {j}", got_s[:, j],
+                 got_m[:, j], ref[:, j])
+    secs["walks"] = time.perf_counter() - t0
+    peak_walks = stage_peak_gb(torch)
+
+    # (b) each block of the mask walks against its switch twin
+    t0 = time.perf_counter()
+    seqs = {i: decoded[i][0] for i in ends}
+    del prefills, decoded
+    with torch.no_grad(), BlockShadow(name) as shadow:
+        for c in ctrls:
+            lm.prefill(params, cfg, gbatch, c)
+        for i in ends:
+            greedy(ctrls[i], "mask", feed=seqs[i])
+    want_blocks = shadow_blocks(cfg, ctrls, ends, steps)
+    if shadow.blocks != want_blocks:
+        fail(f"{name}: {shadow.blocks} blocks compared to their switch "
+             f"twins, not {want_blocks}")
+    secs["block_twins"] = time.perf_counter() - t0
+
+    # (c) the trace of a prefill and a decode step of the largest subnet
+    t0 = time.perf_counter()
+    top = ctrls[-1]
+    cache = lm.init_cache(cfg, B, 16, device="cuda")
+    tok = torch.as_tensor(toks, device="cuda")
+    with torch.no_grad():
+        trace = trace_steps(torch, {
+            "prefill": lambda: lm.prefill(params, cfg, gbatch, top),
+            "decode": lambda: lm.decode_step(params, cfg, tok, top, cache,
+                                             3)},
+            n=CONFIG_TRACE_STEPS)
+    step_bytes = lm.param_bytes(cfg) - cfg.vocab_size * cfg.d_model * 2
+    for kind in trace:
+        trace[kind]["bytes_bound_ms"] = step_bytes / card.bw * 1e3
+    secs["trace"] = time.perf_counter() - t0
+    del params, cache, gbatch
+    _free(torch)
+
+    # (d) the 2-layer reference on the CPU
+    t0 = time.perf_counter()
+    cut = depth_cut(torch, name, seed=2)
+    worst = reference_check(torch, cut, tag=f"{name} reference")
+    del cut
+    _free(torch)
+    secs["reference"] = time.perf_counter() - t0
+    say("config", arch=name, frontend=cfg.frontend, pos_embed=cfg.pos_embed,
+        mrope_sections=list(cfg.mrope_sections),
+        layers=sum(s.repeat for s in cfg.stages), d_model=cfg.d_model,
+        heads=[cfg.n_heads, cfg.n_kv_heads], head_dim=cfg.resolved_head_dim,
+        d_ff=cfg.d_ff, vocab=cfg.vocab_size, norm=cfg.norm,
+        ffn_act=cfg.ffn_act, parameters=n_params, peak_device_gb=peak_walks,
+        subnets=len(pts), builds_after_warmup=bc.count,
+        switch_margin=SWITCH_MARGIN,
+        prefill_logits_max_rel_err={k: max(v) for k, v in
+                                    errs["prefill"].items()},
+        decode_logits_max_rel_err={k: max(v) for k, v in
+                                   errs["decode"].items()},
+        switch_minus_mask_vs_fp32=dict(mean=sum(gaps) / len(gaps),
+                                       max=max(gaps), min=min(gaps),
+                                       walks=len(gaps)),
+        blocks_compared=shadow.blocks, switch_block_max_rel_err=shadow.worst,
+        switch_block_max_rel_err_by_kind=shadow.worst_by_kind,
+        block_tol="2e-2 of max|block output|", walk_launches=launches,
+        reference_max_rel_err=worst["mask"],
+        reference_switch_max_rel_err=worst["switch"], seconds=secs,
+        trace=trace)
+    return launches
+
+
+# --------------------------------------------------------------------------
 
 
 SOURCES = {
@@ -3069,6 +3499,8 @@ def main(argv) -> int:
     path_launches += timed("ssm", phase_ssm, torch, card)
     path_launches += timed("plane", phase_plane, torch, pacing)
     path_launches += timed("train", phase_train, torch)
+    path_launches += timed("conv", phase_conv, torch, card)
+    path_launches += timed("frontends", phase_frontends, torch, card)
     line = []
     for name in PATH_KERNELS:
         route, source, replaces = SOURCES[name]

@@ -19,6 +19,8 @@ _ARCH_MODULES = (
     "llama4_maverick_400b_a17b",
     "zamba2_2p7b",
     "xlstm_125m",
+    "musicgen_medium",
+    "qwen2_vl_7b",
     "ofa_resnet",
 )
 

@@ -1,3 +1,3 @@
 """SubNetAct core: the control space Phi, the three operators, Pareto NAS
 + predictors (copies of the jax-free ``repro.core`` modules plus the torch
-operators)."""
+operators), and the conv supernet's SubnetNorm calibration."""

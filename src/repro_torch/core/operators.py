@@ -9,6 +9,9 @@
   pending residual add. The RMS flavor without bias goes through the
   kernel entry points (the CUDA kernel on the card, which also fuses the
   add).
+* :func:`subnet_batch_norm` — SubnetNorm in its first form, for the conv
+  supernet: BatchNorm with per-subnet (mean, var) rows picked by
+  ``subnet_id`` (calibrated offline by ``core.calibrate``).
 * :func:`sliced_matmul` / :func:`slice_mask` — WeightSlice. Two modes:
   ``mask``   : full-shape matmul with channel masks (full FLOPs);
   ``switch`` : the ``sliced_matmul`` kernel over the active prefix. JAX
@@ -32,13 +35,18 @@ from repro_torch.kernels.ref import take_row
 
 # control-tuple fields that stay on the host (LayerSelect walks them)
 HOST_FIELDS = ("layer_gate",)
+# fields that are fractions, not counts: the conv supernet's WeightSlice
+# (E, W) control (``models.convnet.make_conv_control``)
+FLOAT_FIELDS = ("conv_e_frac", "conv_w_frac")
 
 
 def device_control(ctrl: Dict, device) -> Dict:
-    """The control tuple of ``repro_torch.core.subnet.make_control`` split
-    for execution: ``layer_gate`` as a host bool array, every other field
-    as a 0-d int32 tensor on ``device``. Tensors already there pass
-    through, so an executor converts each subnet's tuple once."""
+    """The control tuple of ``repro_torch.core.subnet.make_control`` (or
+    ``models.convnet.make_conv_control``) split for execution:
+    ``layer_gate`` as a host bool array, the fractions of ``FLOAT_FIELDS``
+    as 0-d float32 tensors and every other field as a 0-d int32 tensor on
+    ``device``. Tensors already there pass through, so an executor
+    converts each subnet's tuple once."""
     dev = torch.device(device)
     out = {}
     for key, val in ctrl.items():
@@ -49,7 +57,8 @@ def device_control(ctrl: Dict, device) -> Dict:
         elif isinstance(val, torch.Tensor) and val.device == dev:
             out[key] = val
         else:
-            out[key] = torch.as_tensor(np.asarray(val, np.int32), device=dev)
+            kind = np.float32 if key in FLOAT_FIELDS else np.int32
+            out[key] = torch.as_tensor(np.asarray(val, kind), device=dev)
     return out
 
 
@@ -103,6 +112,18 @@ def subnet_norm(x, gamma_table, subnet_id, *, beta_table=None,
     if beta_table is not None:
         y = y + take_row(beta_table, subnet_id).float()
     return y.to(x.dtype)
+
+
+def subnet_batch_norm(x, mean_table, var_table, gamma, beta, subnet_id,
+                      eps: float = 1e-5):
+    """True BatchNorm SubnetNorm for the conv supernet (the paper's arch):
+    ``x`` (B, H, W, C) normalized in fp32 with the (mean, var) rows of
+    ``subnet_id`` from the (n_subnets, C) tables that calibration fills
+    (``core.calibrate``), then the shared ``gamma`` and ``beta`` (C,).
+    The rows are gathered on the device: no host read of the id."""
+    mu = take_row(mean_table, subnet_id)
+    scale = torch.rsqrt(take_row(var_table, subnet_id) + eps) * gamma
+    return torch.addcmul(beta, x.float() - mu, scale).to(x.dtype)
 
 
 # --------------------------------------------------------------------------

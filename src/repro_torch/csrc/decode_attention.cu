@@ -55,14 +55,14 @@
 //   block found by an int32 counter), which pays three round trips to L2
 //   on the critical path. No float atomics: the bits repeat from launch to
 //   launch, and the wrapper allocates nothing but the output.
-// - Head dims 80, 120 and 128 run one body, instantiated at each d, that
+// - Head dims 64, 80, 120 and 128 run one body, instantiated at each d, that
 //   works on a head padded to HD = 128 columns in shared memory and
 //   registers: the copies past column d zero-fill, Q past d is zero, so
 //   those columns add nothing to S = K Q^T and O's columns past d are 0
 //   and are not stored. Rows in device memory are d wide, and d is a
 //   compile-time constant of each instance, so every offset folds as it
-//   did when 128 was the only width. The padding costs at most 1.6x the
-//   tensor work at d = 80, which is not what bounds the kernel, and no
+//   did when 128 was the only width. The padding costs at most 2x the
+//   tensor work (at d = 64), which is not what bounds the kernel, and no
 //   bytes of device memory.
 // The same schedule is written in Python (kernels/decode_attention.py,
 // live_range / schedule / units) for the tests.
@@ -547,7 +547,7 @@ int launch_stages(int stages, const void* q, const void* k, const void* v,
 }  // namespace
 
 // q: (B, Hkv*G, 1, d), caches: (B, Hkv, Smax, d), out: (B, Hkv*G, 1, d),
-// all contiguous bf16, d = head_dim in {80, 120, 128}; softmax scale
+// all contiguous bf16, d = head_dim in {64, 80, 120, 128}; softmax scale
 // d ** -0.5. index: one int32 in device memory. The grid is B * Hkv
 // clusters of n_split (1 to 16) blocks.
 // `plan` packs min_chunk | stages << 16: the least positions a split takes
@@ -567,6 +567,9 @@ extern "C" int repro_decode_attention_bf16(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int rows = B * Hkv;
   switch (head_dim) {
+    case 64:
+      return launch_stages<64>(stages, q, k_cache, v_cache, index_ptr, out,
+                               rows, G, Smax, window, n_split, min_chunk, st);
     case 80:
       return launch_stages<80>(stages, q, k_cache, v_cache, index_ptr, out,
                                rows, G, Smax, window, n_split, min_chunk, st);

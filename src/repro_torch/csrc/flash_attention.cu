@@ -52,12 +52,13 @@
 // tensor maps are cached by (pointer, shape, strides, box), so a call at a
 // shape and buffer seen before encodes none.
 //
-// Head dims 80, 120 and 128 run one body, instantiated at each d, on a
+// Head dims 64, 80, 120 and 128 run one body, instantiated at each d, on a
 // head padded to HD = 128 columns on the SM: the maps are d wide, so the
 // second 64-column box reads the columns past d as zeros (TMA fills what
-// lies out of bounds), those columns add nothing to S = Q K^T, O's columns
-// past d are 0, and only the d columns of a row are stored. The padding
-// costs 1.6x the tensor work at d = 80 and 1.07x at d = 120, and no bytes
+// lies out of bounds; at d = 64 that box lies wholly past d and is all
+// zeros), those columns add nothing to S = Q K^T, O's columns past d are
+// 0, and only the d columns of a row are stored. The padding costs 2x the
+// tensor work at d = 64, 1.6x at d = 80 and 1.07x at d = 120, and no bytes
 // of device memory; the softmax scale d ** -0.5 comes from the host.
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -573,8 +574,8 @@ int launch_tiles(int kt, const CUtensorMap& tq, const CUtensorMap& tk,
 
 }  // namespace
 
-// q: (B, Hq, Sq, d), k/v: (B, Hkv, Sk, d), bf16, d = head_dim in {80, 120,
-// 128}, any element strides (b, h, s) that are multiples of 8 with
+// q: (B, Hq, Sq, d), k/v: (B, Hkv, Sk, d), bf16, d = head_dim in {64, 80,
+// 120, 128}, any element strides (b, h, s) that are multiples of 8 with
 // contiguous, 16-byte aligned rows (checked by the Python wrapper); o: a
 // contiguous (B, Sq, Hq, d) buffer; softmax scale d ** -0.5. kv_len_ptr
 // may be null, then kv_len_static is used; so may hw_ptr (the head width,
@@ -595,7 +596,8 @@ extern "C" int repro_flash_attention_bf16(
     const void* hw_ptr, int hw_static, int plan, void* stream) {
   const int np = plan & 0xff, nh = plan >> 8 & 0xff, kt = plan >> 16;
   if (B <= 0 || Hq <= 0 || Sq <= 0) return 0;
-  if ((head_dim != 80 && head_dim != 120 && head_dim != HD) || Hkv <= 0 ||
+  if ((head_dim != 64 && head_dim != 80 && head_dim != 120 &&
+       head_dim != HD) || Hkv <= 0 ||
       Hq % Hkv != 0 || Sk <= 0 || np <= 0 || np % 8 != 0 ||
       nh <= 0 || nh * np > QM || (kt != 32 && kt != 64))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -612,6 +614,10 @@ extern "C" int repro_flash_attention_bf16(
   const auto st = static_cast<cudaStream_t>(stream);
   const int grid = static_cast<int>(blocks);
   switch (d) {
+    case 64:
+      return launch_tiles<64>(kt, tq, tk, tv, o, grid, B, Hkv, G, Sq, Sk, np,
+                              nh, causal, window, kv_len_ptr, kv_len_static,
+                              hw_ptr, hw_static, Hq, st);
     case 80:
       return launch_tiles<80>(kt, tq, tk, tv, o, grid, B, Hkv, G, Sq, Sk, np,
                               nh, causal, window, kv_len_ptr, kv_len_static,

@@ -41,7 +41,7 @@ from repro_torch import compat
 from repro_torch.kernels import build, ref
 
 NAME = "decode_attention"
-HEAD_DIMS = (80, 120, 128)
+HEAD_DIMS = (64, 80, 120, 128)
 G_MAX = 8
 _C = "repro_decode_attention_bf16"
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]

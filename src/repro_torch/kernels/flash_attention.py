@@ -38,7 +38,7 @@ from repro_torch import compat
 from repro_torch.kernels import build, ref
 
 NAME = "flash_attention"
-HEAD_DIMS = (80, 120, 128)
+HEAD_DIMS = (64, 80, 120, 128)
 _C = "repro_flash_attention_bf16"
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
              + [ctypes.c_longlong] * 9

@@ -1,2 +1,3 @@
 """Model substrate in PyTorch: attention, FFN, MoE, Mamba2 and xLSTM blocks,
-the layer-walking backbone and the LM step functions (token-frontend LMs)."""
+the layer-walking backbone and the LM step functions (token- and
+embed-frontend LMs), and the paper's OFA-ResNet conv supernet."""

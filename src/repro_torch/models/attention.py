@@ -1,11 +1,10 @@
-"""Attention: GQA/MHA with RoPE and partial rotary, sliding window,
-SubNetAct head elasticity, flash prefill and cached decode (port of
-``repro/models/attention.py``).
+"""Attention: GQA/MHA with RoPE, M-RoPE (qwen2-vl) and partial rotary,
+sliding window, SubNetAct head elasticity, flash prefill and cached decode
+(port of ``repro/models/attention.py``).
 
 The attention itself goes through the kernel entry points
 (``kernels.ops.model_flash_attention`` / ``model_decode_attention``): the
-CUDA kernels on the GPU, their plain versions on the CPU. M-RoPE comes
-with a later slice of the port.
+CUDA kernels on the GPU, their plain versions on the CPU.
 
 WeightSlice switch mode (prefill): attention computes only the active
 query heads (the flash kernel reads ``head_width`` and writes zeros for
@@ -48,10 +47,12 @@ def _rotate_half(x):
 
 def apply_rope(x, positions, theta: float, rotary_pct: float = 1.0,
                mrope_sections=()):
-    """x: (B, S, H, hd); positions: (B, S) integer tensor."""
-    if mrope_sections:
-        raise NotImplementedError("M-RoPE (qwen2-vl) comes with a later "
-                                  "slice of the port")
+    """x: (B, S, H, hd); positions: (B, S) integer tensor, or (3, B, S)
+    for M-RoPE.
+
+    M-RoPE (qwen2-vl): the rot/2 frequency slots are partitioned into
+    ``mrope_sections`` (temporal, h, w); each slot takes its angle from
+    its section's position stream."""
     hd = x.shape[-1]
     rot = int(hd * rotary_pct)
     rot -= rot % 2
@@ -59,7 +60,13 @@ def apply_rope(x, positions, theta: float, rotary_pct: float = 1.0,
         return x
     x_rot, x_pass = x[..., :rot], x[..., rot:]
     inv = rope_freqs(rot, theta, x.device)                  # (rot/2,)
-    ang = positions.float()[..., None] * inv                # (B, S, rot/2)
+    if mrope_sections:
+        # each slot's stream, (rot/2, B, S), as views of the three
+        pos = torch.cat([positions[i:i + 1].expand(n, *positions.shape[1:])
+                         for i, n in enumerate(mrope_sections)])[:rot // 2]
+        ang = pos.float().permute(1, 2, 0) * inv            # (B, S, rot/2)
+    else:
+        ang = positions.float()[..., None] * inv            # (B, S, rot/2)
     ang = torch.cat([ang, ang], dim=-1)[:, :, None, :]      # (B, S, 1, rot)
     x_rot = (x_rot * torch.cos(ang).to(x.dtype)
              + _rotate_half(x_rot) * torch.sin(ang).to(x.dtype))
@@ -222,7 +229,9 @@ def attention_decode_pending(p, cfg: ArchConfig, x, delta, ctrl, cache,
         decode_impl = partial(model_decode_attention, kv_block=kv_block)
     s, h = pre_norm(p, cfg, x, delta, ctrl)
     B = x.shape[0]
-    positions = index.reshape(1, 1).expand(B, 1)
+    # M-RoPE's three streams all at index, as the reference decodes
+    pos_shape = (3, B, 1) if cfg.mrope_sections else (B, 1)
+    positions = index.reshape((1,) * len(pos_shape)).expand(pos_shape)
     q, k, v = _project_qkv(p, cfg, h, positions)
     k_cache, v_cache = cache["k"], cache["v"]
     Smax = k_cache.shape[2]

@@ -64,13 +64,18 @@ def _slot(j: int, kind: str) -> str:
 
 
 def _check_ported(cfg: ArchConfig) -> None:
+    """Raise on a block kind the LM backbone does not run: the conv
+    supernet's units (the reference's LM has no conv path either)."""
     for stage in cfg.stages:
         for kind in stage.pattern:
+            if kind == "conv":
+                raise NotImplementedError(
+                    f"{cfg.name}: the conv supernet is not an LM; it runs "
+                    f"through models/convnet.py (convnet_forward)")
             if kind not in _PORTED:
                 raise NotImplementedError(
-                    f"{cfg.name}: block kind {kind!r} comes with a later "
-                    f"slice of the port (other LM families); ported: "
-                    f"{_PORTED}")
+                    f"{cfg.name}: unknown block kind {kind!r}; the LM "
+                    f"backbone runs {_PORTED}")
 
 
 # --------------------------------------------------------------------------

@@ -1,6 +1,12 @@
 """LM wrapper: embeddings, final norm, head, and the step functions that the
-executor, tests and examples share (port of ``repro/models/lm.py`` for
-token-frontend, rotary-position LMs).
+executor, tests and examples share (port of ``repro/models/lm.py``).
+
+``frontend='embed'`` configs (qwen2-vl, musicgen) take precomputed
+patch/frame embeddings (``batch["embeds"]``, (B, S, d)) for forward,
+prefill and the loss, as the reference does (the modality frontend is a
+stub); decode always consumes token ids, so the embedding table stays.
+musicgen adds sinusoidal absolute positions to its inputs (in decode at
+the device ``index``); qwen2-vl's M-RoPE takes (3, B, S) positions.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 the step functions run wherever the parameters live. :func:`from_jax_params`
@@ -9,6 +15,7 @@ with the same keys and shapes, through numpy only.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -22,18 +29,10 @@ from repro_torch.models import backbone as bb
 from repro_torch.models.common import dense_init, dtype_of, ones_table
 
 
-def _check_frontend(cfg: ArchConfig) -> None:
-    if cfg.frontend != "token" or cfg.pos_embed != "rope":
-        raise NotImplementedError(
-            f"{cfg.name}: frontend={cfg.frontend!r}, pos_embed="
-            f"{cfg.pos_embed!r} come with a later slice of the port")
-
-
 def init_model(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
                device=None, dtype=None) -> Dict:
     """Random supernet parameters on ``device`` (default: the GPU) drawn
     from ``generator`` (default: seed 0 on that device)."""
-    _check_frontend(cfg)
     dev = compat.resolve_device(device)
     dtype = dtype or dtype_of(cfg)
     if generator is None:
@@ -53,7 +52,6 @@ def init_model(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
 def param_bytes(cfg: ArchConfig, dtype=None) -> int:
     """Bytes of :func:`init_model`'s tree for ``cfg``, counted from the
     leaves' shapes without allocating them."""
-    _check_frontend(cfg)
     dtype = dtype or dtype_of(cfg)
     tables = 1 if cfg.tie_embeddings else 2
     return (tables * cfg.vocab_size * cfg.d_model * dtype.itemsize
@@ -106,29 +104,55 @@ def head_logits(params, cfg: ArchConfig, x, ctrl):
 
 
 def default_positions(cfg: ArchConfig, batch: int, seq: int, device):
-    if cfg.mrope_sections:
-        raise NotImplementedError("M-RoPE positions come with a later slice")
-    return torch.arange(seq, dtype=torch.int32, device=device
-                        ).expand(batch, seq)
+    """0 .. seq-1 for every row, (B, S); (3, B, S), the three M-RoPE
+    streams alike, where ``mrope_sections`` is set."""
+    pos = torch.arange(seq, dtype=torch.int32, device=device
+                       ).expand(batch, seq)
+    return pos.expand(3, batch, seq) if cfg.mrope_sections else pos
+
+
+def embed_inputs(params, cfg: ArchConfig, batch: Dict[str, Any]):
+    """(B, S, d) inputs: ``batch["embeds"]`` (B, S, d) cast to the embedding
+    table's type for an ``embed``-frontend config that has them, else the
+    rows of ``batch["tokens"]`` (B, S)."""
+    dev = _device(params)
+    table = params["embed"]
+    if cfg.frontend == "embed" and "embeds" in batch:
+        embeds = batch["embeds"]
+        if not isinstance(embeds, torch.Tensor):
+            embeds = torch.as_tensor(np.asarray(embeds))
+        return embeds.to(dev, table.dtype)
+    return table[_tokens(batch["tokens"], dev)]
+
+
+def sinusoid_pos(positions, d: int, dtype):
+    """Classic sinusoidal absolute embedding (musicgen). positions (B, S)
+    -> (B, S, d): sines of the first d/2 frequencies, then cosines."""
+    half = d // 2
+    freq = torch.exp(-math.log(10_000.0) * torch.arange(
+        half, dtype=torch.float32, device=positions.device) / half)
+    ang = positions.float()[..., None] * freq                   # (B,S,half)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
 
 
 def hidden_states(params, cfg: ArchConfig, batch: Dict[str, Any], ctrl, *,
                   slice_mode="mask", remat=False, moe_groups=1,
                   attn_impl=None):
-    """Backbone output (B, S, d) for ``batch["tokens"]`` (B, S);
-    ``remat`` and ``moe_groups`` as ``backbone.backbone_forward`` takes
-    them."""
-    _check_frontend(cfg)
+    """Backbone output (B, S, d) for ``batch["tokens"]`` (B, S) or, for an
+    ``embed``-frontend config, ``batch["embeds"]`` (B, S, d); ``remat`` and
+    ``moe_groups`` as ``backbone.backbone_forward`` takes them."""
     dev = _device(params)
     if slice_mode == "switch":
         ctrl = attn_mod.with_wo_width(cfg, ctrl)
     ctrl = ops.device_control(ctrl, dev)
-    tokens = _tokens(batch["tokens"], dev)
-    x = params["embed"][tokens]
-    B, S = tokens.shape
+    x = embed_inputs(params, cfg, batch)
+    B, S = x.shape[:2]
     positions = batch.get("positions")
     positions = (default_positions(cfg, B, S, dev) if positions is None
                  else torch.as_tensor(positions, device=dev))
+    if cfg.pos_embed == "sinusoidal":
+        pos2d = positions if positions.dim() == 2 else positions[0]
+        x = x + sinusoid_pos(pos2d, cfg.d_model, x.dtype)
     return bb.backbone_forward(params["backbone"], cfg, x, ctrl, positions,
                                slice_mode=slice_mode, remat=remat,
                                moe_groups=moe_groups, attn_impl=attn_impl)
@@ -136,7 +160,7 @@ def hidden_states(params, cfg: ArchConfig, batch: Dict[str, Any], ctrl, *,
 
 def forward(params, cfg: ArchConfig, batch, ctrl, *, slice_mode="mask",
             remat=False, moe_groups=1, attn_impl=None):
-    """Logits (B, S, vocab) for ``batch["tokens"]`` (B, S)."""
+    """Logits (B, S, vocab) for ``batch["tokens"]`` (B, S) or ``embeds``."""
     x = hidden_states(params, cfg, batch, ctrl, slice_mode=slice_mode,
                       remat=remat, moe_groups=moe_groups,
                       attn_impl=attn_impl)
@@ -171,19 +195,23 @@ def loss_fn(params, cfg: ArchConfig, batch, ctrl, *, slice_mode="mask",
 def prefill(params, cfg: ArchConfig, batch, ctrl, *, slice_mode="mask"):
     """Serving prefill: logits for the final position only (B, 1, vocab)."""
     x = hidden_states(params, cfg, batch, ctrl, slice_mode=slice_mode)
-    return head_logits(params, cfg, x[:, -1:], ctrl)
+    # the norm kernel takes contiguous rows
+    return head_logits(params, cfg, x[:, -1:].contiguous(), ctrl)
 
 
 def decode_step(params, cfg: ArchConfig, tokens, ctrl, cache, index, *,
                 slice_mode="mask"):
     """tokens: (B, 1); index: int or 0-d int32 device tensor. Returns
-    (logits (B, 1, vocab), cache), the cache updated in place."""
-    _check_frontend(cfg)
+    (logits (B, 1, vocab), cache), the cache updated in place. Sinusoidal
+    positions are added at the device ``index``, with no host read."""
     dev = _device(params)
     ctrl = ops.device_control(ctrl, dev)
     if not isinstance(index, torch.Tensor):
         index = torch.full((), int(index), dtype=torch.int32, device=dev)
     x = params["embed"][_tokens(tokens, dev)]
+    if cfg.pos_embed == "sinusoidal":
+        pos = index.reshape(1, 1).expand(x.shape[0], 1)
+        x = x + sinusoid_pos(pos, cfg.d_model, x.dtype)
     x, cache = bb.backbone_decode(params["backbone"], cfg, x, ctrl, cache,
                                   index, slice_mode=slice_mode)
     return head_logits(params, cfg, x, ctrl), cache

@@ -51,11 +51,11 @@ _CONFIGS_CHILD = _CHILD.split("import repro_torch")[0] + r"""
 from repro_torch.configs import get_config, list_configs
 for name in ("qwen2.5-14b", "stablelm-3b", "h2o-danube-3-4b",
              "mixtral-8x7b", "llama4-maverick-400b-a17b", "zamba2-2.7b",
-             "xlstm-125m", "ofa_resnet"):
+             "xlstm-125m", "musicgen-medium", "qwen2-vl-7b", "ofa_resnet"):
     get_config(name)
 mods = ("qwen2p5_14b", "stablelm_3b", "h2o_danube_3_4b", "mixtral_8x7b",
         "llama4_maverick_400b_a17b", "zamba2_2p7b", "xlstm_125m",
-        "ofa_resnet")
+        "musicgen_medium", "qwen2_vl_7b", "ofa_resnet")
 assert all(f"repro_torch.configs.{{m}}" in sys.modules for m in mods)
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
@@ -65,14 +65,14 @@ print(len(list_configs()))
 
 def test_config_modules_import_without_jax_or_repro():
     """The configs beside qwen2-1.5b (three dense, two MoE, two of the SSM
-    family, and the paper's OFA-ResNet, which the sim path profiles) load
+    family, the two embed-frontend ones, and the paper's OFA-ResNet) load
     under the same blocker, each from its own module of the port."""
     proc = subprocess.run(
         [sys.executable, "-c", _CONFIGS_CHILD.format(blocked=BLOCKED)],
         cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
         capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip().splitlines()[-1]) == 9
+    assert int(proc.stdout.strip().splitlines()[-1]) == 11
 
 
 def test_moe_modules_import_without_jax_or_repro():
@@ -204,6 +204,54 @@ print("ok")
     proc = subprocess.run(
         [sys.executable, "-c",
          child.format(blocked=BLOCKED, ckpt=str(tmp_path))],
+        cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+        capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "ok"
+
+
+def test_conv_and_frontend_modules_import_without_jax_or_repro():
+    """The conv supernet's modules (``models/convnet.py``,
+    ``core/calibrate.py``) and the embed-frontend configs import under the
+    blocker, and there a narrow OFA-ResNet calibrates two subnets and
+    walks them, and the reduced musicgen-medium and qwen2-vl-7b run a
+    forward from ``embeds`` and two decode steps on the CPU."""
+    child = _CHILD.split("import repro_torch")[0] + r"""
+import numpy as np
+import torch
+from repro_torch.configs import get_config, musicgen_medium, qwen2_vl_7b
+from repro_torch.configs.base import Stage
+from repro_torch.core import calibrate
+from repro_torch.core import subnet as sn
+from repro_torch.models import convnet, lm
+cfg = get_config("ofa_resnet")
+cfg = cfg.replace(stages=tuple(Stage(s.pattern, 2) for s in cfg.stages),
+                  conv_stage_widths=(16, 32, 48, 64), n_classes=10)
+p = convnet.init_convnet(cfg, torch.Generator().manual_seed(0), "cpu")
+x = np.random.default_rng(0).standard_normal((2, 16, 16, 3)).astype("f4")
+space = sn.enumerate_space(cfg)
+calibrate.calibrate_convnet(p, cfg, [x], space[:2])
+for sub in space[:2]:
+    y = convnet.convnet_forward(p, cfg, x, convnet.make_conv_control(cfg, sub))
+    assert y.shape == (2, 10) and bool(torch.isfinite(y).all())
+assert calibrate.norm_table_bytes(p) > 0 and calibrate.shared_weight_bytes(p) > 0
+for name in ("musicgen-medium", "qwen2-vl-7b"):
+    cfg = get_config(name).reduced()
+    p = lm.init_model(cfg, torch.Generator().manual_seed(0), "cpu")
+    ctrl = sn.make_control(cfg, sn.max_subnet(cfg))
+    y = lm.forward(p, cfg, {{"embeds": torch.ones(1, 4, cfg.d_model)}}, ctrl,
+                   slice_mode="switch")
+    assert y.shape == (1, 4, cfg.vocab_size) and bool(torch.isfinite(y).all())
+    cache = lm.init_cache(cfg, 1, 8, device="cpu")
+    for i in range(2):
+        y, cache = lm.decode_step(p, cfg, [[i + 1]], ctrl, cache, i)
+        assert bool(torch.isfinite(y).all())
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+assert not leaked, leaked
+print("ok")
+"""
+    proc = subprocess.run(
+        [sys.executable, "-c", child.format(blocked=BLOCKED)],
         cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
         capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr

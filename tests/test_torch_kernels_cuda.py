@@ -77,7 +77,7 @@ def test_flash_attention_kernel_matches_plain(cuda, S, window, kv_len, layout,
 # the heads of each head dim the kernels are built for: stablelm-3b's MHA
 # at d = 80 (G = 1), h2o-danube-3-4b's G = 4 at d = 120, qwen2.5-14b's G = 5
 # at d = 128, with 2 kv heads (8 under MHA) to keep the cases small
-HEAD_DIM_HEADS = {80: (8, 8), 120: (8, 2), 128: (10, 2)}
+HEAD_DIM_HEADS = {64: (8, 8), 80: (8, 8), 120: (8, 2), 128: (10, 2)}
 GUARD = 64          # elements past an output, which no launch may write
 
 
@@ -110,15 +110,28 @@ def _flash_into(o, q, k, v, *, window=0, kv_len=None, head_width=None):
 
 @pytest.mark.parametrize("layout", ["bhsd", "bshd-view"])
 @pytest.mark.parametrize("S,window,kv_len", FLASH_CASES)
-@pytest.mark.parametrize("d", [80, 120])
+@pytest.mark.parametrize("d", [64, 80, 120])
 def test_flash_attention_kernel_matches_plain_at_head_dims(cuda, d, S, window,
                                                            kv_len, layout):
-    """d = 80 (MHA, stablelm-3b's heads) and d = 120 (G = 4, h2o-danube's)
-    over the cases of d = 128: against the plain version at every head
-    width (half of them as a device tensor), two launches bitwise equal,
-    inactive heads exactly 0, and nothing written past the output's d
-    columns (the guard after it keeps its value)."""
-    Hq, Hkv = HEAD_DIM_HEADS[d]
+    """d = 64 (MHA, musicgen-medium's heads; the second 64-column box lies
+    wholly past d), d = 80 (MHA, stablelm-3b's) and d = 120 (G = 4,
+    h2o-danube's) over the cases of d = 128: against the plain version at
+    every head width (half of them as a device tensor), two launches
+    bitwise equal, inactive heads exactly 0, and nothing written past the
+    output's d columns (the guard after it keeps its value)."""
+    _flash_at_heads(cuda, d, *HEAD_DIM_HEADS[d], S, window, kv_len, layout)
+
+
+@pytest.mark.parametrize("layout", ["bhsd", "bshd-view"])
+@pytest.mark.parametrize("S,window,kv_len", FLASH_CASES)
+def test_flash_attention_kernel_matches_plain_at_group_7(cuda, S, window,
+                                                         kv_len, layout):
+    """qwen2-vl-7b's heads, 28 over 4 kv heads (G = 7: one head a block),
+    d = 128, as the other head dims are checked."""
+    _flash_at_heads(cuda, 128, 28, 4, S, window, kv_len, layout)
+
+
+def _flash_at_heads(cuda, d, Hq, Hkv, S, window, kv_len, layout):
     gen = torch.Generator(device=cuda).manual_seed(S + d)
     if layout == "bhsd":
         q = _randn(gen, 2, Hq, S, d, dev=cuda)
@@ -146,15 +159,15 @@ def test_flash_attention_kernel_matches_plain_at_head_dims(cuda, d, S, window,
 
 
 def test_flash_attention_kernel_takes_no_stale_map(cuda):
-    """d = 128 and then d = 80 on the same storage with the same strides
-    (the d = 80 tensors are views of the first 80 columns): the tensor
-    maps are keyed by d, so the second call reads rows 80 wide, and each
-    call matches the plain version on its own tensors."""
+    """d = 128 and then d = 80, 120 and 64 on the same storage with the
+    same strides (the narrower tensors are views of the first d columns):
+    the tensor maps are keyed by d, so each call reads rows d wide, and
+    each call matches the plain version on its own tensors."""
     gen = torch.Generator(device=cuda).manual_seed(21)
     q = _randn(gen, 2, 10, 64, 128, dev=cuda)
     k = _randn(gen, 2, 2, 64, 128, dev=cuda)
     v = _randn(gen, 2, 2, 64, 128, dev=cuda)
-    for dd in (128, 80, 128, 120):
+    for dd in (128, 80, 128, 120, 64):
         qd, kd, vd = q[..., :dd], k[..., :dd], v[..., :dd]
         got = fa.flash_attention(qd, kd, vd)
         want = fa.flash_attention_plain(qd.contiguous(), kd.contiguous(),
@@ -170,9 +183,9 @@ def test_flash_attention_kernel_refuses_what_it_does_not_take(cuda):
     q = torch.zeros((1, 12, 16, 128), dtype=torch.bfloat16, device=cuda)
     k = torch.zeros((1, 2, 16, 128), dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
-        fa.flash_attention(q[..., :64], k[..., :64], k[..., :64])
-    assert fa.HEAD_DIMS == da.HEAD_DIMS == (80, 120, 128)
-    for d in (64, 96):
+        fa.flash_attention(q[..., :96], k[..., :96], k[..., :96])
+    assert fa.HEAD_DIMS == da.HEAD_DIMS == (64, 80, 120, 128)
+    for d in (32, 96):
         qd = q[..., :d].contiguous()
         kd = k[..., :d].contiguous()
         with pytest.raises(ValueError, match="head_dim"):
@@ -220,11 +233,12 @@ def test_decode_attention_kernel_matches_plain(cuda, G, B, Smax):
 
 
 @pytest.mark.parametrize("Smax", [16, 100, 256, 2048])
-@pytest.mark.parametrize("G", [1, 4, 5])
-@pytest.mark.parametrize("d", [80, 120])
+@pytest.mark.parametrize("G", [1, 4, 5, 7])
+@pytest.mark.parametrize("d", [64, 80, 120, 128])
 def test_decode_attention_kernel_matches_plain_at_head_dims(cuda, d, G, Smax):
-    """d = 80 and 120 with G = 1 (stablelm-3b), 4 (h2o-danube-3-4b) and 5
-    (qwen2.5-14b) over 2 kv heads, B = 8, every index class, window 0 and
+    """d = 64, 80, 120 and 128 with G = 1 (stablelm-3b, musicgen-medium), 4
+    (h2o-danube-3-4b), 5 (qwen2.5-14b) and 7 (qwen2-vl-7b) over 2 kv
+    heads, B = 8, every index class, window 0 and
     64: against the plain version, two launches bitwise equal, and nothing
     written past the output's d columns (the guard after it keeps its
     value), with one live split and with a row's splits merged."""
@@ -310,7 +324,7 @@ def test_decode_attention_kernel_refuses_a_split_past_a_cluster(cuda):
     assert call(da.MAX_SPLIT + 1, da.PLAN.word) != 0
     assert call(4, da.Plan(64, 4).word) != 0
     assert call(4, da.Plan(24, 2).word) != 0
-    assert call(4, da.PLAN.word, head_dim=64) != 0
+    assert call(4, da.PLAN.word, head_dim=32) != 0
     assert call(4, da.PLAN.word, head_dim=96) != 0
     torch.cuda.synchronize()
     assert (out == 7.0).all()
@@ -797,6 +811,56 @@ def test_lm_on_card_matches_cpu_plain_path_at_head_dims(cuda, d, slice_mode):
         cg = lm.init_cache(cfg, 2, 32, device=cuda)
         cc = lm.init_cache(cfg32, 2, 32, device="cpu")
         for i in range(20):
+            lg, cg = lm.decode_step(gpu, cfg, toks[:, i:i + 1], ctrl, cg, i,
+                                    slice_mode=slice_mode)
+            lc, cc = lm.decode_step(cpu, cfg32, toks[:, i:i + 1], ctrl, cc, i)
+            _close_rel(lg, lc)
+
+
+@pytest.mark.parametrize("slice_mode", ["mask", "switch"])
+@pytest.mark.parametrize("name", ["musicgen-medium", "qwen2-vl-7b"])
+def test_embed_frontend_lm_on_card_matches_cpu_plain_path(cuda, name,
+                                                          slice_mode):
+    """Small twins of the embed-frontend configs, bf16, 3 layers at their
+    published heads: musicgen-medium's (MHA at d = 64, layernorm, GELU,
+    sinusoidal positions) and qwen2-vl-7b's (G = 7 at d = 128, M-RoPE).
+    On the card against the plain fp32 path on the CPU, for every subnet:
+    forward logits from ``embeds`` (qwen2-vl over three distinct position
+    streams) and the prefill's last position, then 12
+    decode steps on tokens of the widest subnet."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import Stage
+    from repro_torch.core import subnet as sn
+    from repro_torch.models import lm
+    full = get_config(name)
+    cfg = full.replace(stages=(Stage(("attn", "mlp"), repeat=3),),
+                       d_model=full.n_heads * 32, d_ff=512, vocab_size=1000)
+    gpu = lm.init_model(cfg, torch.Generator(device=cuda).manual_seed(3),
+                        cuda)
+    cpu = lm.from_jax_params(_to_numpy(gpu), device="cpu")
+    cfg32 = cfg.replace(dtype="float32")
+    rng = np.random.default_rng(3)
+    batch = {"embeds": rng.standard_normal((2, 16, cfg.d_model)
+                                           ).astype(np.float32)}
+    if cfg.mrope_sections:
+        i = np.arange(16)
+        batch["positions"] = np.broadcast_to(
+            np.stack([np.full(16, 2), i // 4, i % 4])[:, None],
+            (3, 2, 16)).astype(np.int32)
+    toks = rng.integers(0, cfg.vocab_size, (2, 12))
+    with torch.no_grad():
+        for sub in sn.enumerate_space(cfg):
+            ctrl = sn.make_control(cfg, sub)
+            want = lm.forward(cpu, cfg32, batch, ctrl)
+            _close_rel(lm.forward(gpu, cfg, batch, ctrl,
+                                  slice_mode=slice_mode), want)
+            # the last position alone, through the norm kernel's rows
+            _close_rel(lm.prefill(gpu, cfg, batch, ctrl,
+                                  slice_mode=slice_mode), want[:, -1:])
+        cg = lm.init_cache(cfg, 2, 16, device=cuda)
+        cc = lm.init_cache(cfg32, 2, 16, device="cpu")
+        for i in range(12):
             lg, cg = lm.decode_step(gpu, cfg, toks[:, i:i + 1], ctrl, cg, i,
                                     slice_mode=slice_mode)
             lc, cc = lm.decode_step(cpu, cfg32, toks[:, i:i + 1], ctrl, cc, i)

@@ -144,16 +144,16 @@ def test_prefill_is_last_position_of_forward(model):
 
 
 def test_unported_families_raise():
-    """What the port does not run yet refuses with "later slice": the
-    ``embed`` frontend (musicgen-medium) and the ``conv`` block kind (the
-    paper's OFA-ResNet supernet)."""
-    cfg = port_cfg(tiny_dense()).replace(frontend="embed")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tlm.init_model(cfg, device="cpu")
+    """The LM refuses a ``conv`` stage (the paper's OFA-ResNet supernet),
+    naming ``models/convnet.py``, which runs it; the reference's LM has no
+    conv path either. The ``embed`` frontend is an LM's and builds."""
     cfg = port_cfg(tiny_dense()).replace(
         stages=(pbase.Stage(("conv",), repeat=1),))
-    with pytest.raises(NotImplementedError, match="later slice"):
+    with pytest.raises(NotImplementedError, match="models/convnet.py"):
         tlm.init_model(cfg, device="cpu")
+    cfg = port_cfg(tiny_dense()).replace(frontend="embed")
+    params = tlm.init_model(cfg, torch.Generator().manual_seed(0), "cpu")
+    assert tuple(params["embed"].shape) == (cfg.vocab_size, cfg.d_model)
 
 
 # --------------------------------------------------------------------------

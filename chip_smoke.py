@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # all phases, one CUDA device
     python3 chip_smoke.py --quick    # build + kernel checks only
+    python3 chip_smoke.py --dist     # build + phase 15 only
 
 Phases, one result line each:
 
@@ -164,6 +165,26 @@ Phases, one result line each:
    holds its configs, flash and decode attention, ``sliced_matmul`` and
    (qwen2-vl) the norm launched; each block against its switch twin; the
    trace of a prefill and a decode step; the 2-layer reference.
+15. Distribution and int8 weights: (a) full-width, full-depth qwen2-1.5b
+   in bf16: ``quantize_tree`` on the card (device ms), the int8 tree and
+   scales against the bf16 bytes, every leaf's dequantization within
+   amax/254; a 2-unit cut whose int8 tree and scales equal the CPU's bit
+   for bit and whose int8 walk is within 2e-2 of max |logit| of the CPU's
+   fp32 walk on the same dequantized weights; then prefill (B = 8, S =
+   16) and 8 greedy decode steps of the widest and the narrowest Pareto
+   subnet in mask mode with int8 weights (``dequantize_tree`` each step,
+   then ``lm.decode_step``) against bf16: host and device ms a step, the
+   dequantization's share, the logit gap and the greedy tokens that
+   differ, no build, the three kernels launched; (b) NCCL at world size 1
+   on a (1, 1) mesh: a 2-unit cut placed with ``plan.params``,
+   ``seq_sharded_decode`` (B = 8, 12 / 2 heads, d = 128, Smax 2048,
+   index 1500) against the ``decode_attention`` kernel within 2e-2, the
+   int8 all-reduce equal to ``ef_quantize``'s dequantization, a checkpoint
+   restored onto the plan's placements bit for bit; (c) the dry-run of
+   qwen2-1.5b at train_4k and at decode_32k with int8 weights on the
+   256-rank single mesh, started in subprocesses at the phase's start:
+   each must end ``status: ok``; its roofline terms over H100 data-sheet
+   peaks, per-device GB against 80 and collectives.
 
 Each phase prints its seconds. Then one JSON line with every kernel's
 numbers (the attention kernels' also at each head_dim of phases 8-10 and
@@ -177,6 +198,8 @@ from __future__ import annotations
 import itertools
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -3451,6 +3474,344 @@ def frontend_run(torch, card, name: str):
 
 
 # --------------------------------------------------------------------------
+# phase 15: int8 weights, distribution at world size 1, the dry-run
+# --------------------------------------------------------------------------
+
+DRYRUN_CELLS = (("train_4k", ()), ("decode_32k", ("--int8-weights",)))
+
+
+def start_dryruns():
+    """The dry-run cells of phase 15c, each in a subprocess of its own on
+    the host (a fake 256-rank group, nothing on the card), started
+    together so that they run beside 15a and 15b."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    procs = []
+    for shape, flags in DRYRUN_CELLS:
+        argv = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                "qwen2-1.5b", "--shape", shape, "--mesh", "single", *flags]
+        procs.append((shape, flags, subprocess.Popen(
+            argv, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)))
+    return procs
+
+
+def finish_dryruns(procs):
+    """Phase 15c: each cell must end ``status: ok``; its roofline terms,
+    dominant term, per-device GB against the H100's 80 and collectives."""
+    from repro_torch.roofline import hw
+    for shape, flags, proc in procs:
+        out, err = proc.communicate(timeout=600)
+        lines = [ln for ln in out.splitlines()
+                 if ln.startswith("status: ok ")]
+        if proc.returncode != 0 or not lines:
+            fail(f"dry-run {shape} {flags}: rc {proc.returncode}: "
+                 f"{err[-2000:]}")
+        rec = json.loads(lines[-1][len("status: ok "):])
+        say("dist-dryrun", arch=rec["arch"], shape=shape, mesh=rec["mesh"],
+            int8_weights=rec["int8_weights"], torch=rec["torch"],
+            status=rec["status"], chips=rec["chips"],
+            t_compute_ms=rec["t_compute"] * 1e3,
+            t_memory_ms=rec["t_memory"] * 1e3,
+            t_collective_ms=rec["t_collective"] * 1e3,
+            dominant=rec["dominant"],
+            argument_gb=rec["argument_bytes_per_device"] / 1e9,
+            temp_gb=rec["temp_bytes_per_device"] / 1e9,
+            hbm_gb=hw.H100_HBM_BYTES / 1e9, fits_hbm=rec["fits_hbm"],
+            collective_counts=rec["collective_counts"],
+            place_s=rec["place_s"], trace_s=rec["trace_s"],
+            note="planning figures from H100 data-sheet peaks")
+
+
+def int8_walks(torch, cfg, params, q, sc, ctrls, B=8, S=16, steps=8):
+    """Prefill (B, S) and ``steps`` greedy decode steps of each control in
+    ``ctrls`` in mask mode, in bf16 and with int8 weights (the reference's
+    ``decode_int8``: ``dequantize_tree`` each step, then
+    ``lm.decode_step``): host and device ms a step of each, the int8
+    logits' gap from bf16's with both fed bf16's greedy tokens, and the
+    tokens the int8 walk's own greedy choice changes. Returns a row a
+    subnet."""
+    import numpy as np
+    from repro_torch.models import lm
+    from repro_torch.serving import quantize as QZ
+    toks = torch.as_tensor(np.random.default_rng(8).integers(
+        0, cfg.vocab_size, (B, S)), device="cuda")
+
+    def weights(kind):
+        return QZ.dequantize_tree(q, sc) if kind == "int8" else params
+
+    def walk(kind, ctrl, feed=None):
+        """(prefill logits, decode logits, tokens fed after the prompt,
+        host ms a step); greedy unless ``feed`` gives the tokens."""
+        first = lm.prefill(weights(kind), cfg, {"tokens": toks}, ctrl)
+        cache = lm.init_cache(cfg, B, S + steps, device="cuda")
+        tok = first[:, -1].argmax(-1, keepdim=True)
+        outs, seq, wall = [], [], []
+        for j in range(steps):
+            if feed is not None:
+                tok = feed[:, j:j + 1]
+            seq.append(tok)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = lm.decode_step(weights(kind), cfg, tok, ctrl,
+                                           cache, S + j)
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t0) * 1e3)
+            outs.append(logits.float())
+            tok = logits[:, -1].argmax(-1, keepdim=True)
+        return first.float(), torch.cat(outs, 1), torch.cat(seq, 1), wall
+
+    rows = []
+    for ctrl in ctrls:
+        b_first, b_walk, b_toks, b_wall = walk("bf16", ctrl)
+        q_first, q_walk, _, _ = walk("int8", ctrl, feed=b_toks)
+        _, _, g_toks, q_wall = walk("int8", ctrl)
+        cache = lm.init_cache(cfg, B, S + steps, device="cuda")
+        ms = {kind: device_ms(torch, lambda kind=kind: lm.decode_step(
+            weights(kind), cfg, b_toks[:, :1], ctrl, cache, S), n=3)
+            for kind in ("bf16", "int8")}
+        rows.append(dict(
+            bf16_host_ms=sum(b_wall) / steps, int8_host_ms=sum(q_wall) / steps,
+            bf16_device_ms=ms["bf16"], int8_device_ms=ms["int8"],
+            logit_gap=float((q_walk - b_walk).abs().max())
+            / float(b_walk.abs().max()),
+            prefill_gap=float((q_first - b_first).abs().max())
+            / float(b_first.abs().max()),
+            tokens_differ=int((g_toks != b_toks).sum()),
+            tokens=int(b_toks.numel())))
+    return rows
+
+
+def int8_cut_check(torch):
+    """The 2-unit cut of full-width qwen2-1.5b: the int8 tree and scales
+    the card computes equal bit for bit those the CPU's plain path
+    computes from the same bf16 weights, and the card's int8 walk (bf16
+    dequantized weights through the kernels: prefill (B = 2, S = 16) and 4
+    decode steps of the widest and the narrowest Pareto subnet, mask mode)
+    within 2e-2 of max |logit| of the CPU's fp32 walk on the same
+    dequantized weights."""
+    import numpy as np
+    from repro_torch.core import operators as ops
+    from repro_torch.core import subnet as sn
+    from repro_torch.core.pareto import pareto_subnets
+    from repro_torch.models import lm
+    from repro_torch.serving import quantize as QZ
+    cfg, gpu, cfg32, _ = depth_cut(torch, "qwen2-1.5b", seed=9)
+    q, sc = QZ.quantize_tree(gpu)
+    q_cpu, sc_cpu = QZ.quantize_tree(to_cpu(gpu))
+    for a, b in zip(_leaves(q), _leaves(q_cpu)):
+        if not torch.equal(a.cpu(), b):
+            fail("int8 cut: the card's int8 tree differs from the CPU's")
+    for a, b in zip(_leaves(sc), _leaves(sc_cpu)):
+        if not torch.equal(a.cpu(), b):
+            fail("int8 cut: the card's scales differ from the CPU's")
+    deq = QZ.dequantize_tree(q, sc)
+    deq32 = QZ.dequantize_tree(q_cpu, sc_cpu, dtype=torch.float32)
+    pts = pareto_subnets(cfg)
+    rng = np.random.default_rng(10)
+    toks = rng.integers(0, cfg.vocab_size, (2, 16))
+    steps = rng.integers(0, cfg.vocab_size, (2, 4))
+    worst = 0.0
+    for p in (pts[-1], pts[0]):
+        ctrl = sn.make_control(cfg, p.sub)
+        walks = []
+        for params, c, dev in ((deq, cfg, "cuda"), (deq32, cfg32, "cpu")):
+            ctl = ops.device_control(ctrl, dev)
+            t = torch.as_tensor(toks, device=dev)
+            outs = [lm.prefill(params, c, {"tokens": t}, ctl).float()]
+            cache = lm.init_cache(c, 2, 32, device=dev)
+            for j in range(16):     # the prompt through the decode path
+                _, cache = lm.decode_step(params, c, t[:, j:j + 1], ctl,
+                                          cache, j)
+            for j in range(4):
+                logits, cache = lm.decode_step(
+                    params, c, torch.as_tensor(steps[:, j:j + 1],
+                                               device=dev), ctl, cache,
+                    16 + j)
+                outs.append(logits.float())
+            walks.append(torch.cat(outs, 1).cpu())
+        err = rel_err(walks[0].numpy(), walks[1].numpy(),
+                      f"int8 cut walk {p.sub}")
+        worst = max(worst, err)
+    return dict(int8_tree_equal_cpu=True, scales_equal_cpu=True,
+                walk_max_rel_err=worst, tol=2e-2)
+
+
+def phase_dist(torch, card):
+    """Phase 15. (a) Full-width, full-depth qwen2-1.5b in bf16 from the
+    seeded init: ``quantize_tree`` on the card (device ms), the bytes of
+    the int8 tree and its scales against the bf16 tree, every leaf's
+    dequantization within amax/254, the 2-unit cut bit for bit against
+    the CPU and its walk against the CPU's fp32 walk
+    (:func:`int8_cut_check`), then the int8 decode of the widest and the
+    narrowest Pareto subnet against bf16 (:func:`int8_walks`). (b)
+    Distribution under NCCL at world size 1 on a (1, 1) mesh: a 2-unit
+    cut placed with ``plan.params``, ``seq_sharded_decode`` at the served
+    decode shapes against the ``decode_attention`` kernel, the int8
+    all-reduce against ``ef_quantize``, a checkpoint saved and restored
+    with shardings bit for bit. (c) The dry-run cells of DRYRUN_CELLS on
+    this machine's torch (:func:`finish_dryruns`). Returns the kernel
+    launches of (a)'s walks."""
+    from repro_torch import compat
+    from repro_torch.configs import get_config
+    from repro_torch.core import operators as ops
+    from repro_torch.core import subnet as sn
+    from repro_torch.core.pareto import pareto_subnets
+    from repro_torch.models import lm
+    from repro_torch.serving import quantize as QZ
+    procs = start_dryruns()
+    secs = {}
+    t0 = time.perf_counter()
+    cfg = get_config("qwen2-1.5b")
+    params = lm.init_model(cfg, torch.Generator(device="cuda").manual_seed(7),
+                           "cuda")
+    q, sc = QZ.quantize_tree(params)
+    quant_ms = device_ms(torch, lambda: QZ.quantize_tree(params), n=2)
+    bf16_bytes = QZ.quantized_bytes(params)
+    int8_bytes = QZ.quantized_bytes(q) + QZ.quantized_bytes(sc)
+    n_int8, worst_bound = 0, 0.0
+    for a, qv, s in zip(_leaves(params), _leaves(q), _leaves(sc)):
+        if qv.dtype != torch.int8:
+            if not torch.equal(qv, a):
+                fail("int8: a leaf that is not quantized changed")
+            continue
+        n_int8 += 1
+        f = a.float()
+        amax = f.abs().amax(dim=tuple(range(f.dim() - 1)), keepdim=True)
+        err = (f - qv.float() * s).abs()
+        if bool((err > amax / 254 + 1e-7).any()):
+            fail("int8: a dequantized leaf strays past amax/254")
+        worst_bound = max(worst_bound, float((err / (amax / 254 + 1e-12))
+                                             .max()))
+        del f, amax, err
+    ratio = int8_bytes / bf16_bytes
+    if not ratio < 0.65:
+        fail(f"int8: tree plus scales {ratio:.4f} of the bf16 bytes")
+    secs["quantize"] = time.perf_counter() - t0
+    say("dist-int8", arch=cfg.name, params=sum(t.numel() for t in
+                                                 _leaves(params)),
+        bf16_gb=bf16_bytes / 1e9, int8_gb=int8_bytes / 1e9,
+        byte_ratio=ratio, leaves_quantized=n_int8,
+        worst_err_over_bound=worst_bound, quantize_device_ms=quant_ms,
+        card=card.name)
+    t0 = time.perf_counter()
+    cut = int8_cut_check(torch)
+    secs["cut"] = time.perf_counter() - t0
+    say("dist-int8-cut", **cut)
+    t0 = time.perf_counter()
+    pts = pareto_subnets(cfg)
+    ctrls = [ops.device_control(sn.make_control(cfg, p.sub), "cuda")
+             for p in (pts[-1], pts[0])]
+    deq_ms = device_ms(torch, lambda: QZ.dequantize_tree(q, sc), n=2)
+    with torch.no_grad():
+        int8_walks(torch, cfg, params, q, sc, ctrls[:1], steps=1)  # warm
+        torch.cuda.synchronize()
+        compat.reset_launch_counts()
+        with compat.BuildCounter() as bc:
+            rows = int8_walks(torch, cfg, params, q, sc, ctrls)
+        launches = compat.launch_counts()
+    if bc.count:
+        fail(f"int8 walks built {bc.count} kernels after warmup")
+    for name in ("subnet_rmsnorm", "flash_attention", "decode_attention"):
+        if launches.get(name, 0) <= 0:
+            fail(f"int8 walks never launched {name}")
+    secs["walks"] = time.perf_counter() - t0
+    for row, p in zip(rows, (pts[-1], pts[0])):
+        share = (deq_ms / row["int8_device_ms"]
+                 if isinstance(deq_ms, float)
+                 and isinstance(row["int8_device_ms"], float) else None)
+        say("dist-int8-decode", subnet=str(p.sub), dequantize_device_ms=deq_ms,
+            dequantize_share=share, **row)
+    del params, q, sc
+    _free(torch)
+    t0 = time.perf_counter()
+    nccl = nccl_world1(torch)
+    secs["nccl"] = time.perf_counter() - t0
+    say("dist-nccl", **nccl)
+    t0 = time.perf_counter()
+    finish_dryruns(procs)
+    secs["dryrun_wait"] = time.perf_counter() - t0
+    say("dist", launches=launches, seconds=secs)
+    return [launches]
+
+
+def nccl_world1(torch):
+    """Phase 15b: ``torch.distributed`` with the NCCL backend at world size
+    1 (one card: NCCL takes no second rank on the same device). Not a
+    multi-card result; the numbers of many ranks are held on the CPU under
+    gloo (``tests/test_torch_dist.py``)."""
+    import tempfile
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from repro_torch.distributed import collectives, elastic
+    from repro_torch.distributed.sharding import ShardingPlan
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training import compress
+    from repro_torch.training import optimizer as opt
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    dist.init_process_group("nccl", store=dist.FileStore(
+        os.path.join(tmp, "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device_type="cuda")
+        cfg, gpu, _, _ = depth_cut(torch, "qwen2-1.5b", seed=11)
+        plan = ShardingPlan(mesh, cfg)
+        placed = elastic.reshard_params(gpu, plan)
+        for a, b in zip(_leaves(gpu), _leaves(placed)):
+            if not torch.equal(b.full_tensor(), a):
+                fail("nccl: a placed leaf differs from its source")
+        # the served decode shapes against the decode kernel
+        gen = torch.Generator(device="cuda").manual_seed(12)
+        B, Hq, Hkv, d, smax, index = 8, 12, 2, 128, 2048, 1500
+        qd = torch.randn((B, Hq, 1, d), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        kc, vc = (torch.randn((B, Hkv, smax, d), generator=gen,
+                              device="cuda").to(torch.bfloat16)
+                  for _ in range(2))
+        want = kops.decode_attention(qd, kc, vc, torch.full(
+            (), index, dtype=torch.int32, device="cuda"))
+        kd, vd = (distribute_tensor(t, mesh, [Shard(2), Replicate()])
+                  for t in (kc, vc))
+        got = collectives.seq_sharded_decode(mesh, qd, kd, vd, index)
+        seq_err = rel_err(got.float().cpu().numpy(),
+                          want.float().cpu().numpy(),
+                          "nccl seq_sharded_decode")
+        # the int8 all-reduce of a gradient tree
+        grads = {k: torch.randn(v.shape, generator=gen, device="cuda")
+                 for k, v in gpu["backbone"]["stages"][0]["0:attn"].items()}
+        err0 = {k: torch.zeros_like(v) for k, v in grads.items()}
+        mean, new_err = compress.all_reduce_int8(mesh, grads, err0)
+        for k in grads:
+            qv, s, e = compress.ef_quantize(grads[k], err0[k])
+            if not (torch.equal(mean[k], compress.dequantize(qv, s))
+                    and torch.equal(new_err[k], e)):
+                fail(f"nccl: all_reduce_int8 of {k} is not ef_quantize's")
+        # a checkpoint saved and restored onto the plan's placements
+        tree = {"params": placed, "opt": opt.init(gpu)}
+        t0 = time.perf_counter()
+        ckpt.save(os.path.join(tmp, "ckpt"), 1, tree, extra={"step": 1})
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back, _ = ckpt.restore(
+            os.path.join(tmp, "ckpt"), {"params": gpu, "opt": opt.init(gpu)},
+            shardings={"params": plan.params(gpu),
+                       "opt": opt.state_shardings(plan, gpu)}, mesh=mesh)
+        restore_s = time.perf_counter() - t0
+        for a, b in zip(_leaves(gpu), _leaves(back["params"])):
+            if not torch.equal(b.full_tensor(), a):
+                fail("nccl: a restored leaf differs from the saved one")
+        return dict(backend=dist.get_backend(), world_size=dist.get_world_size(),
+                    mesh=[1, 1], placed_equal=True, seq_decode_rel_err=seq_err,
+                    seq_decode_tol=2e-2, all_reduce_int8_equal=True,
+                    restore_bit_equal=True, save_s=save_s,
+                    restore_s=restore_s,
+                    note="world size 1 on one card: not a multi-card result")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# --------------------------------------------------------------------------
 
 
 SOURCES = {
@@ -3485,6 +3846,9 @@ def main(argv) -> int:
         return out
 
     timed("build", phase_build, torch, card)
+    if "--dist" in argv:        # phase 15 alone, after the build
+        timed("dist", phase_dist, torch, card)
+        return 0
     kernels = timed("kernels", phase_kernels, torch, card)
     if "--quick" in argv:
         return 0
@@ -3501,6 +3865,7 @@ def main(argv) -> int:
     path_launches += timed("train", phase_train, torch)
     path_launches += timed("conv", phase_conv, torch, card)
     path_launches += timed("frontends", phase_frontends, torch, card)
+    path_launches += timed("dist", phase_dist, torch, card)
     line = []
     for name in PATH_KERNELS:
         route, source, replaces = SOURCES[name]

@@ -56,14 +56,16 @@ def default_device() -> torch.device:
 
 def resolve_device(device=None) -> torch.device:
     """``device`` as a ``torch.device``; ``None`` means :func:`default_device`.
-    A CUDA device that is not present raises."""
+    A CUDA device that is not present raises. ``meta`` (shapes and types
+    only, nothing allocated) serves the dry-run's specs."""
     if device is None:
         return default_device()
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {dev} requested but CUDA is unavailable")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev}; expected cuda or cpu")
+    if dev.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"unsupported device {dev}; expected cuda, cpu "
+                         f"or meta")
     return dev
 
 
@@ -221,3 +223,45 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     with _counter_lock:
         _launches.clear()
+
+
+# --------------------------------------------------------------------------
+# Distribution: the torch APIs the port's distribution and dry-run use,
+# pinned in one place. Two of them are private (the fake process group and
+# the resolution of a group's name); ``chip_smoke.py`` phase 15 runs the
+# dry-run on the card machine's torch to show they hold there too. Each
+# import happens at the call, so importing this module touches no process
+# group.
+# --------------------------------------------------------------------------
+
+
+def init_fake_process_group(world_size: int, rank: int = 0) -> None:
+    """A process group of ``world_size`` ranks that moves no bytes
+    (``torch.testing._internal.distributed.fake_pg``, backend ``fake``):
+    collectives return at once, so a step can be traced on one host as
+    one rank of a production mesh."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=world_size)
+
+
+def fake_tensor_mode():
+    """``FakeTensorMode`` taking real inputs too: tensors made inside it
+    have shapes, types and devices, and no storage."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    return FakeTensorMode(allow_non_fake_inputs=True)
+
+
+def implicit_replication():
+    """DTensor's context in which a plain tensor meeting a DTensor counts
+    as replicated: the constants a step makes inside itself (``arange``
+    masks, default positions), as XLA treats an iota under GSPMD."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    return implicit_replication()
+
+
+def group_size(group_name: str) -> int:
+    """Ranks of the process group a functional collective names."""
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    return _resolve_process_group(group_name).size()

@@ -89,6 +89,9 @@ def subnet_norm(x, gamma_table, subnet_id, *, beta_table=None,
     launch on the card; the other flavors add, then normalize."""
     if kind == "rmsnorm" and beta_table is None:
         from repro_torch.kernels import ops as kops
+        # the kernel reads an fp32 table; a narrower one (the bf16 tables
+        # of dequantized int8 weights) widens exactly, an fp32 one as is
+        gamma_table = gamma_table.float()
         if residual is None:
             return kops.model_subnet_rmsnorm(x, gamma_table, subnet_id,
                                              eps=eps)

@@ -15,6 +15,10 @@ The ``cuda`` implementations of the kernels a training forward reaches
 """
 from __future__ import annotations
 
+from functools import partial
+
+from repro_torch.distributed.placement import (heads_local, heads_sharded,
+                                              is_dtensor)
 from repro_torch.kernels import autograd as ag
 from repro_torch.kernels import ref
 from repro_torch.kernels import decode_attention as _decode
@@ -154,7 +158,14 @@ def model_flash_attention(q, k, v, *, causal=True, window=0, q_offset=0,
     The kernel does not take ``q_offset``/``scale``. On CPU tensors a call
     using them takes the plain path (the rule of
     ``repro/kernels/ops.py:173``); on any other device it raises, since the
-    device alone decides between kernel and plain version."""
+    device alone decides between kernel and plain version. DTensors whose
+    heads are sharded (the dry-run) run on each rank's own heads
+    (``distributed.placement.heads_local``)."""
+    if is_dtensor(q) and heads_sharded(q, k):
+        return heads_local(partial(
+            model_flash_attention, causal=causal, window=window,
+            q_offset=q_offset, q_block=q_block, kv_block=kv_block,
+            scale=scale), q, k, v, kv_len=kv_len, head_width=head_width)
     if not (isinstance(q_offset, int) and q_offset == 0 and scale is None):
         if q.device.type != "cpu":
             raise NotImplementedError(
@@ -174,6 +185,10 @@ def model_flash_attention(q, k, v, *, causal=True, window=0, q_offset=0,
 def model_decode_attention(q, k_cache, v_cache, *, index, window=0,
                            kv_block=512):
     """Single-token cached decode for model decode steps."""
+    if is_dtensor(q) and heads_sharded(q, k_cache):
+        return heads_local(partial(model_decode_attention, window=window,
+                                   kv_block=kv_block),
+                           q, k_cache, v_cache, index=index)
     return decode_attention(q, k_cache, v_cache, index, window=window,
                             kv_block=kv_block)
 

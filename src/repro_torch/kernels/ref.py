@@ -29,6 +29,12 @@ def acc(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.float64 if t.dtype == torch.float64 else torch.float32)
 
 
+def _unreadable(t) -> bool:
+    """Whether ``t`` has no values the host could read: a DTensor or a
+    fake tensor (the dry-run's)."""
+    return type(t).__name__ in ("DTensor", "FakeTensor")
+
+
 def take_row(table: torch.Tensor, idx) -> torch.Tensor:
     """``table[idx]`` for an int or a 0-d integer tensor, without a host
     read: indexing with a 0-d tensor would call ``.item()``."""
@@ -213,11 +219,13 @@ def decode_attention_ref(q, k_cache, v_cache, index, *, window: int = 0,
     softmax covers the shortest power-of-two-of-``kv_block`` cache prefix
     that holds ``index`` instead of all of Smax. Picking the prefix reads
     ``index`` on the host. Rolling-window caches wrap, so they take the
-    dense path."""
+    dense path; so does an ``index`` the host cannot read (a DTensor or a
+    fake tensor, as the dry-run traces it): like the reference's traced
+    index, it leaves the whole cache live."""
     B, Hq, _, d = q.shape
     _, Hkv, Smax, _ = k_cache.shape
     kb = min(kv_block, Smax) if kv_block else Smax
-    if window or kb >= Smax:
+    if window or kb >= Smax or _unreadable(index):
         return decode_attention_dense_ref(q, k_cache, v_cache, index,
                                           window=window)
     idx = int(index)

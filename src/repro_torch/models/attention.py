@@ -26,9 +26,11 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import operators as ops
 from repro_torch.core.subnet import head_group_size
+from repro_torch.distributed.placement import write_slot
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
-from repro_torch.models.common import Dense, ones_table, pre_norm
+from repro_torch.models.common import (Dense, merge_heads, ones_table,
+                                      pre_norm, split_heads)
 
 # --------------------------------------------------------------------------
 # Rotary embeddings
@@ -106,9 +108,9 @@ def _project_qkv(p, cfg: ArchConfig, x, positions):
     q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(B, S, cfg.n_heads, hd)
-    k = k.reshape(B, S, cfg.n_kv_heads, hd)
-    v = v.reshape(B, S, cfg.n_kv_heads, hd)
+    q = split_heads(q, cfg.n_heads, hd)
+    k = split_heads(k, cfg.n_kv_heads, hd)
+    v = split_heads(v, cfg.n_kv_heads, hd)
     if cfg.pos_embed == "rope":
         q = apply_rope(q, positions, cfg.rope_theta, cfg.rotary_pct,
                        cfg.mrope_sections)
@@ -199,7 +201,7 @@ def attention_block_pending(p, cfg: ArchConfig, x, delta, ctrl, positions, *,
     # WeightSlice(mask): zero the *outputs* of inactive heads —
     # paper-faithful routing (inactive channels contribute nothing).
     o = head_mask(cfg, o, ctrl["head_width"])
-    y = o.reshape(B, S, Hq * hd) @ p["wo"]
+    y = merge_heads(o) @ p["wo"]
     return s, y.to(s.dtype)
 
 
@@ -237,13 +239,13 @@ def attention_decode_pending(p, cfg: ArchConfig, x, delta, ctrl, cache,
     Smax = k_cache.shape[2]
     slot = torch.remainder(index, Smax) if cfg.sliding_window else index
     slot = slot.reshape(1).long()
-    k_cache.index_copy_(2, slot, k.transpose(1, 2).to(k_cache.dtype))
-    v_cache.index_copy_(2, slot, v.transpose(1, 2).to(v_cache.dtype))
+    write_slot(k_cache, 2, slot, k.transpose(1, 2).to(k_cache.dtype))
+    write_slot(v_cache, 2, slot, v.transpose(1, 2).to(v_cache.dtype))
     o = decode_impl(q.transpose(1, 2), k_cache, v_cache, index=index,
                     window=cfg.sliding_window)
     o = o.transpose(1, 2)                               # (B,1,H,hd)
     o = head_mask(cfg, o, ctrl["head_width"])
-    y = o.reshape(B, 1, cfg.n_heads * cfg.resolved_head_dim) @ p["wo"]
+    y = merge_heads(o) @ p["wo"]
     return s, y.to(s.dtype)
 
 

@@ -35,6 +35,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.operators import layer_select
+from repro_torch.distributed.placement import settle_partial
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import moe as moe_mod
@@ -154,22 +155,24 @@ def _settle(pair):
     """The residual stream of a ``(x, delta)`` pair: ``x + delta``, the one
     residual add of a walk that no pre-norm took."""
     x, delta = pair
-    return x if delta is None else x + delta
+    return x if delta is None else x + settle_partial(delta)
 
 
 def _ffn(kind: str, p, cfg: ArchConfig, xd, ctrl, slice_mode: str,
-         moe_groups: int = 1):
+         moe_groups: int = 1, moe_group_axes=None):
     """An ``mlp`` or ``moe`` block on the pair ``xd = (x, delta)``; decode
     calls it on ``(B, 1, d)``, so a MoE block routes B tokens."""
     if kind == "moe":
         return moe_mod.moe_block_pending(p, cfg, *xd, ctrl,
                                          slice_mode=slice_mode,
-                                         n_groups=moe_groups)
+                                         n_groups=moe_groups,
+                                         group_axes=moe_group_axes)
     return ffn_mod.mlp_block_pending(p, cfg, *xd, ctrl, slice_mode=slice_mode)
 
 
 def _block(kind: str, p, cfg: ArchConfig, xd, ctrl, positions,
-           slice_mode: str, attn_impl, moe_groups: int = 1):
+           slice_mode: str, attn_impl, moe_groups: int = 1,
+           moe_group_axes=None):
     """One block of a prefill walk on the pair ``xd``. Each block function
     is looked up on its module at the call, so a wrapper put there is
     seen."""
@@ -184,13 +187,15 @@ def _block(kind: str, p, cfg: ArchConfig, xd, ctrl, positions,
     elif kind == "slstm":
         block = xlstm_mod.slstm_block_pending
     else:
-        return _ffn(kind, p, cfg, xd, ctrl, slice_mode, moe_groups)
+        return _ffn(kind, p, cfg, xd, ctrl, slice_mode, moe_groups,
+                    moe_group_axes)
     return block(p, cfg, *xd, ctrl, slice_mode=slice_mode)
 
 
 def backbone_forward(params, cfg: ArchConfig, x, ctrl, positions, *,
                      slice_mode: str = "mask", remat: bool = False,
-                     moe_groups: int = 1, attn_impl=None):
+                     moe_groups: int = 1, moe_group_axes=None,
+                     attn_impl=None):
     """x: (B, S, d) -> (B, S, d). ``attn_impl=None`` takes the kernel
     entry point for x's device; pass one to pin an impl (tests).
 
@@ -201,7 +206,9 @@ def backbone_forward(params, cfg: ArchConfig, x, ctrl, positions, *,
     returning. ``remat``: each live unit, the shared block after it
     included, runs under ``torch.utils.checkpoint`` (non-reentrant), so
     the backward recomputes its activations. ``moe_groups``: the token
-    groups of each MoE block (``moe.moe_block``'s ``n_groups``)."""
+    groups of each MoE block (``moe.moe_block``'s ``n_groups``), and
+    ``moe_group_axes`` the mesh dims they are sharded over on DTensors
+    (its ``group_axes``)."""
     _check_ported(cfg)
     gates = _gates(cfg, ctrl)
     offset = 0
@@ -218,7 +225,8 @@ def backbone_forward(params, cfg: ArchConfig, x, ctrl, positions, *,
                 for j, kind in enumerate(stage.pattern):
                     layer = {k: v[r] for k, v in sp[_slot(j, kind)].items()}
                     xd = _block(kind, layer, cfg, xd, ctrl, positions,
-                                slice_mode, attn_impl, moe_groups)
+                                slice_mode, attn_impl, moe_groups,
+                                moe_group_axes)
                 if _runs_shared(params, cfg, r):
                     xd = attn_mod.attention_block_pending(
                         params["shared_attn"], cfg, *xd, ctrl, positions,

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import operators as ops
+from repro_torch.distributed.placement import gather_uneven, settle_partial
 
 Params = Dict[str, Any]
 
@@ -46,6 +47,8 @@ def fill_dense(out: torch.Tensor, generator: torch.Generator,
     the rank, as in ``repro/models/common.py``: for an ``(E, d, f)``
     expert table that is E. A 3-d leaf is drawn one ``out[e]`` at a time,
     so the fp32 temporary is one expert's matrix."""
+    if out.is_meta:
+        return out
     std = scale / np.sqrt(max(out.shape[0], 1))
     for part in (out if out.dim() > 2 else (out,)):
         t = torch.empty(part.shape, dtype=torch.float32, device=out.device)
@@ -102,7 +105,25 @@ def pre_norm(p: Params, cfg, x, delta, ctrl):
     if delta is None:
         return x, ops.subnet_norm(x, p["norm_gamma"], ctrl["subnet_id"], **kw)
     return ops.subnet_norm(x, p["norm_gamma"], ctrl["subnet_id"],
-                           residual=delta, **kw)
+                           residual=settle_partial(delta), **kw)
+
+
+def split_heads(t, n: int, hd: int):
+    """``(..., n * hd)`` viewed as ``(..., n, hd)``. A DTensor whose last
+    dim is sharded into shards that do not divide ``n`` is gathered on it
+    first (``distributed.placement.gather_uneven``): DTensor cannot split
+    such a shard, GSPMD re-lays it out. A plain tensor is only viewed."""
+    t = gather_uneven(t, -1, n)
+    return t.reshape(*t.shape[:-1], n, hd)
+
+
+def merge_heads(t):
+    """``(..., n, hd)`` viewed as ``(..., n * hd)``. A DTensor sharded on
+    ``hd`` is gathered on it first: the merged dim would be a strided
+    shard, which the next product takes no strategy for. A plain tensor
+    is only viewed."""
+    t = gather_uneven(t, -1, 1)
+    return t.reshape(*t.shape[:-2], t.shape[-2] * t.shape[-1])
 
 
 def tree_flatten_with_path(tree, path: Tuple = ()) -> list:

@@ -24,6 +24,7 @@ import torch
 from repro_torch import compat
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import operators as ops
+from repro_torch.distributed.placement import embedding, label_logits
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import backbone as bb
 from repro_torch.models.common import dense_init, dtype_of, ones_table
@@ -32,10 +33,11 @@ from repro_torch.models.common import dense_init, dtype_of, ones_table
 def init_model(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
                device=None, dtype=None) -> Dict:
     """Random supernet parameters on ``device`` (default: the GPU) drawn
-    from ``generator`` (default: seed 0 on that device)."""
+    from ``generator`` (default: seed 0 on that device). On ``meta`` the
+    leaves have their shapes and types and nothing is drawn."""
     dev = compat.resolve_device(device)
     dtype = dtype or dtype_of(cfg)
-    if generator is None:
+    if generator is None and dev.type != "meta":
         generator = torch.Generator(device=dev).manual_seed(0)
     params = {
         "embed": dense_init((cfg.vocab_size, cfg.d_model), dtype, generator,
@@ -122,7 +124,7 @@ def embed_inputs(params, cfg: ArchConfig, batch: Dict[str, Any]):
         if not isinstance(embeds, torch.Tensor):
             embeds = torch.as_tensor(np.asarray(embeds))
         return embeds.to(dev, table.dtype)
-    return table[_tokens(batch["tokens"], dev)]
+    return embedding(_tokens(batch["tokens"], dev), table)
 
 
 def sinusoid_pos(positions, d: int, dtype):
@@ -137,10 +139,11 @@ def sinusoid_pos(positions, d: int, dtype):
 
 def hidden_states(params, cfg: ArchConfig, batch: Dict[str, Any], ctrl, *,
                   slice_mode="mask", remat=False, moe_groups=1,
-                  attn_impl=None):
+                  moe_group_axes=None, attn_impl=None):
     """Backbone output (B, S, d) for ``batch["tokens"]`` (B, S) or, for an
-    ``embed``-frontend config, ``batch["embeds"]`` (B, S, d); ``remat`` and
-    ``moe_groups`` as ``backbone.backbone_forward`` takes them."""
+    ``embed``-frontend config, ``batch["embeds"]`` (B, S, d); ``remat``,
+    ``moe_groups`` and ``moe_group_axes`` as ``backbone.backbone_forward``
+    takes them."""
     dev = _device(params)
     if slice_mode == "switch":
         ctrl = attn_mod.with_wo_width(cfg, ctrl)
@@ -155,30 +158,35 @@ def hidden_states(params, cfg: ArchConfig, batch: Dict[str, Any], ctrl, *,
         x = x + sinusoid_pos(pos2d, cfg.d_model, x.dtype)
     return bb.backbone_forward(params["backbone"], cfg, x, ctrl, positions,
                                slice_mode=slice_mode, remat=remat,
-                               moe_groups=moe_groups, attn_impl=attn_impl)
+                               moe_groups=moe_groups,
+                               moe_group_axes=moe_group_axes,
+                               attn_impl=attn_impl)
 
 
 def forward(params, cfg: ArchConfig, batch, ctrl, *, slice_mode="mask",
-            remat=False, moe_groups=1, attn_impl=None):
+            remat=False, moe_groups=1, moe_group_axes=None, attn_impl=None):
     """Logits (B, S, vocab) for ``batch["tokens"]`` (B, S) or ``embeds``."""
     x = hidden_states(params, cfg, batch, ctrl, slice_mode=slice_mode,
                       remat=remat, moe_groups=moe_groups,
-                      attn_impl=attn_impl)
+                      moe_group_axes=moe_group_axes, attn_impl=attn_impl)
     return head_logits(params, cfg, x, ctrl)
 
 
 def loss_fn(params, cfg: ArchConfig, batch, ctrl, *, slice_mode="mask",
-            remat=False, moe_groups=1, z_loss: float = 1e-4):
+            remat=False, moe_groups=1, moe_group_axes=None,
+            z_loss: float = 1e-4, attn_impl=None):
     """Mean next-token cross-entropy of ``batch["labels"]`` (B, S) over the
     positions of ``batch["loss_mask"]`` (all of them when absent), from
     fp32 logits, plus ``z_loss`` times the mean squared log-partition
     (port of ``repro.models.lm.loss_fn``)."""
     dev = _device(params)
     logits = forward(params, cfg, batch, ctrl, slice_mode=slice_mode,
-                     remat=remat, moe_groups=moe_groups).float()
+                     remat=remat, moe_groups=moe_groups,
+                     moe_group_axes=moe_group_axes,
+                     attn_impl=attn_impl).float()
     labels = _tokens(batch["labels"], dev)
     lse = torch.logsumexp(logits, dim=-1)
-    nll = lse - torch.gather(logits, -1, labels[..., None])[..., 0]
+    nll = lse - label_logits(logits, labels)
     mask = batch.get("loss_mask")
     if mask is None:
         mask = torch.ones_like(nll)
@@ -192,9 +200,12 @@ def loss_fn(params, cfg: ArchConfig, batch, ctrl, *, slice_mode="mask",
     return loss
 
 
-def prefill(params, cfg: ArchConfig, batch, ctrl, *, slice_mode="mask"):
+def prefill(params, cfg: ArchConfig, batch, ctrl, *, slice_mode="mask",
+            moe_groups=1, moe_group_axes=None, attn_impl=None):
     """Serving prefill: logits for the final position only (B, 1, vocab)."""
-    x = hidden_states(params, cfg, batch, ctrl, slice_mode=slice_mode)
+    x = hidden_states(params, cfg, batch, ctrl, slice_mode=slice_mode,
+                      moe_groups=moe_groups, moe_group_axes=moe_group_axes,
+                      attn_impl=attn_impl)
     # the norm kernel takes contiguous rows
     return head_logits(params, cfg, x[:, -1:].contiguous(), ctrl)
 
@@ -208,7 +219,7 @@ def decode_step(params, cfg: ArchConfig, tokens, ctrl, cache, index, *,
     ctrl = ops.device_control(ctrl, dev)
     if not isinstance(index, torch.Tensor):
         index = torch.full((), int(index), dtype=torch.int32, device=dev)
-    x = params["embed"][_tokens(tokens, dev)]
+    x = embedding(_tokens(tokens, dev), params["embed"])
     if cfg.pos_embed == "sinusoidal":
         pos = index.reshape(1, 1).expand(x.shape[0], 1)
         x = x + sinusoid_pos(pos, cfg.d_model, x.dtype)

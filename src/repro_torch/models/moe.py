@@ -40,6 +40,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import operators as ops
+from repro_torch.distributed.placement import (expert_matmul, group_local,
+                                              pin_groups)
 from repro_torch.kernels import ops as kops
 from repro_torch.models.common import Dense, ones_table, pre_norm
 
@@ -160,19 +162,29 @@ def _experts_switch(slots, p, width):
 
 
 def moe_block(p, cfg: ArchConfig, x, ctrl, *, slice_mode: str = "mask",
-              n_groups: int = 1):
-    """Pre-norm MoE. x: (B, S, d) -> (B, S, d)."""
+              n_groups: int = 1, group_axes=None):
+    """Pre-norm MoE. x: (B, S, d) -> (B, S, d).
+
+    ``group_axes``: the mesh dims the group dim is sharded over (the DP
+    axes). On DTensors the group tensors are pinned there
+    (``distributed.placement.pin_groups``), so every dispatch sort and
+    scatter stays local to its data shard, as the reference's
+    ``with_sharding_constraint`` keeps it, and the dispatch and combine
+    run on each rank's own groups (``placement.group_local``); on plain
+    tensors it does nothing."""
     s, y = moe_block_pending(p, cfg, x, None, ctrl, slice_mode=slice_mode,
-                             n_groups=n_groups)
+                             n_groups=n_groups, group_axes=group_axes)
     return s + y
 
 
 def moe_block_pending(p, cfg: ArchConfig, x, delta, ctrl, *,
-                      slice_mode: str = "mask", n_groups: int = 1):
+                      slice_mode: str = "mask", n_groups: int = 1,
+                      group_axes=None):
     """:func:`moe_block` with the previous block's residual add pending:
     returns ``(s, y)``, ``s = x + delta`` (the add fused into the pre-norm;
     ``delta`` None means ``s = x``) and ``y`` this block's output in x's
     type, not yet added."""
+    pin = partial(pin_groups, axes=group_axes)
     ops.check_slice_mode(slice_mode)
     s, h = pre_norm(p, cfg, x, delta, ctrl)
     B, S, d = h.shape
@@ -181,19 +193,25 @@ def moe_block_pending(p, cfg: ArchConfig, x, delta, ctrl, *,
     while N % n_groups:
         n_groups -= 1
     Ng = N // n_groups
-    hg = h.reshape(n_groups, Ng, d)
+    # each rank's rows are its own groups when they are sharded over the
+    # group axes: the reshape is made locally (group_local)
+    hg = group_local(lambda t: t.reshape(-1, Ng, d), group_axes, h)
     logits = hg.float() @ p["router"]                         # (G, Ng, E)
-    slots, meta = dispatch(hg, logits, route(logits, cfg), ctrl["topk"],
-                           cfg, _capacity(Ng, cfg))
+    cap = _capacity(Ng, cfg)
+    slots, meta = group_local(
+        lambda hh, ll, k: dispatch(hh, ll, route(ll, cfg), k, cfg, cap),
+        group_axes, hg, logits, ctrl["topk"])
+    slots = pin(slots)
     if slice_mode == "switch" and len(cfg.elastic.ffn_fracs) > 1:
         out = _experts_switch(slots, p, ctrl["moe_ffn_width"])
     else:
-        a = F.silu(torch.matmul(slots, p["wg"])) \
-            * torch.matmul(slots, p["wu"])
+        a = F.silu(expert_matmul(slots, p["wg"])) \
+            * expert_matmul(slots, p["wu"])
         a = ops.slice_mask(a, ctrl["moe_ffn_width"])
-        out = torch.matmul(a, p["wd"])
+        out = expert_matmul(a, p["wd"])
     # combine in the model dtype, as the reference does
-    y = combine(out.to(x.dtype), meta, Ng).reshape(B, S, d)
+    y = group_local(lambda o, m: combine(o, m, Ng).reshape(-1, S, d),
+                    group_axes, pin(out.to(x.dtype)), meta)
     if cfg.shared_expert:
         a = F.silu(h @ p["swg"]) * (h @ p["swu"])
         a = ops.slice_mask(a, ctrl["moe_ffn_width"])

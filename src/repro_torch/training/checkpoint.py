@@ -13,8 +13,15 @@ and the bytes of every file are the reference's for the same tree: a bf16
 leaf is written as the reference writes it, raw 2-byte words under the
 ``'<V2'`` descriptor, and the manifest names its type ``bfloat16``.
 Unlike the reference, :func:`restore` reads bf16 back (by the manifest's
-type) and places each leaf on the device of the template's leaf. The
-reference's cross-mesh ``shardings`` come with distribution.
+type) and places each leaf on the device of the template's leaf.
+
+Sharded trees: :func:`save` takes DTensor leaves, gathers each whole
+(``full_tensor``, every rank takes part) and writes the same files from
+the first rank only; the other ranks wait for it. :func:`restore` with
+``shardings`` (a tree of DTensor placements over ``mesh``) places each
+leaf with its placements, every rank keeping its own shard of the file it
+reads (the reference's ``jax.device_put`` onto ``NamedSharding``s), so a
+tree saved on one mesh restores onto another.
 """
 from __future__ import annotations
 
@@ -26,7 +33,9 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch.distributed.placement import is_dtensor
 from repro_torch.models.common import tree_flatten_with_path, tree_unflatten
 
 _BF16_DESCR = "<V2"
@@ -50,7 +59,9 @@ def _leaf_files(tree) -> Dict[str, Any]:
 
 def _to_numpy(leaf) -> Tuple[np.ndarray, str]:
     """(array to write, manifest dtype) of a leaf; bf16 as its 16-bit
-    words."""
+    words. A DTensor is gathered whole first."""
+    if is_dtensor(leaf):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu()
         if t.dtype == torch.bfloat16:
@@ -74,23 +85,33 @@ def _save_npy(fp: str, arr: np.ndarray, dtype: str) -> None:
 
 def save(dirpath: str, step: int, tree: Any,
          extra: Optional[Dict] = None) -> str:
-    """Atomic save. Returns the final checkpoint path."""
-    os.makedirs(dirpath, exist_ok=True)
+    """Atomic save. Returns the final checkpoint path. A tree with DTensor
+    leaves is a collective: every rank calls it, the first writes."""
+    leaves = _leaf_files(tree)
+    sharded = any(is_dtensor(leaf) for leaf in leaves.values())
+    writer = not sharded or dist.get_rank() == 0
     final = os.path.join(dirpath, f"step_{step:08d}")
     tmp = final + ".tmp"
-    if os.path.exists(tmp):
-        shutil.rmtree(tmp)
-    os.makedirs(tmp)
+    if writer:
+        os.makedirs(dirpath, exist_ok=True)
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
 
     manifest = {"step": step, "extra": extra or {}, "leaves": {}}
-    for name, leaf in _leaf_files(tree).items():
+    for name, leaf in leaves.items():
         arr, dtype = _to_numpy(leaf)
+        if not writer:
+            continue
         fp = os.path.join(tmp, name + ".npy")
         _save_npy(fp, arr, dtype)
         with open(fp, "rb") as f:
             digest = hashlib.sha256(f.read()).hexdigest()
         manifest["leaves"][name] = {
             "shape": list(arr.shape), "dtype": dtype, "sha256": digest}
+    if not writer:
+        dist.barrier()
+        return final
     mf = os.path.join(tmp, "manifest.json")
     with open(mf, "w") as f:
         json.dump(manifest, f, indent=1)
@@ -103,6 +124,8 @@ def save(dirpath: str, step: int, tree: Any,
     with open(latest + ".tmp", "w") as f:
         f.write(os.path.basename(final))
     os.replace(latest + ".tmp", latest)
+    if sharded:
+        dist.barrier()
     return final
 
 
@@ -127,16 +150,21 @@ def _to_torch(arr: np.ndarray, dtype: str, device) -> torch.Tensor:
 
 
 def restore(dirpath: str, template: Any, *, step: Optional[int] = None,
-            verify: bool = True, device=None,
-            shardings: Any = None) -> Tuple[Any, Dict]:
+            verify: bool = True, device=None, shardings: Any = None,
+            mesh=None) -> Tuple[Any, Dict]:
     """Restore into the structure of ``template``: each leaf read by the
     manifest's dtype (bf16 from its 16-bit words), checked against the
     template leaf's shape and, with ``verify``, the manifest's sha256,
-    and placed on ``device`` or else the template leaf's device."""
+    and placed on ``device`` or else the template leaf's device. With
+    ``shardings`` (a tree of DTensor placements shaped as ``template``)
+    each leaf becomes a DTensor over ``mesh`` with its placements."""
     if shardings is not None:
-        raise NotImplementedError(
-            "restore onto shardings comes with distribution; the port "
-            "restores onto one device")
+        from torch.distributed.tensor import distribute_tensor
+        from repro_torch.distributed.sharding import leaves_with_path
+        if mesh is None:
+            raise ValueError("restore onto shardings needs their mesh")
+        placements = [p for _, p in leaves_with_path(shardings)]
+        device = mesh.device_type
     if step is None:
         step = latest_step(dirpath)
         if step is None:
@@ -160,6 +188,10 @@ def restore(dirpath: str, template: Any, *, step: Optional[int] = None,
         dev = device if device is not None else (
             leaf.device if isinstance(leaf, torch.Tensor) else "cpu")
         out.append(_to_torch(arr, meta["dtype"], dev))
+    if shardings is not None:
+        # each rank keeps its own shard of what it read: nothing is sent
+        out = [distribute_tensor(t, mesh, p, src_data_rank=None)
+               for t, p in zip(out, placements)]
     return tree_unflatten(template, out), manifest["extra"]
 
 

@@ -6,8 +6,8 @@ the reference's order of operations: clip by the global norm, the fp32
 update, decoupled weight decay on leaves with ``ndim >= 2`` only, the
 result cast back to each parameter's type. The step count, the learning
 rate and the clip scale stay 0-d device tensors, so an update reads
-nothing back to the host. The ZeRO-1 ``state_shardings`` come with
-distribution.
+nothing back to the host. ``state_shardings`` gives the ZeRO-1 placements
+of the moments over a ``ShardingPlan``'s mesh.
 """
 from __future__ import annotations
 
@@ -94,3 +94,24 @@ def apply(cfg: AdamWConfig, params, grads, state):
                  "v": tree_unflatten(params, [o[2] for o in out]),
                  "step": step}
     return new_params, new_state, {"grad_norm": gn, "lr": lr}
+
+
+def state_shardings(plan, params) -> Dict[str, Any]:
+    """ZeRO-1: DTensor placements of the moments, each sharded over the DP
+    axes on the first axis that the DP size divides (replicated where none
+    does); ``step`` replicated. ``params``: tensors or shape-only leaves."""
+    dp = plan.dp_axes[0] if len(plan.dp_axes) == 1 else plan.dp_axes
+    dpn = plan.dp_size
+
+    def spec(leaf):
+        shape = tuple(leaf.shape)
+        for i, s in enumerate(shape):
+            if s % max(dpn, 1) == 0 and s >= dpn:
+                return tuple(dp if j == i else None
+                             for j in range(len(shape)))
+        return (None,) * len(shape)
+
+    def moments():
+        return tree_map(lambda leaf: plan.placements(spec(leaf)), params)
+
+    return {"m": moments(), "v": moments(), "step": plan.placements(())}

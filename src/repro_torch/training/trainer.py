@@ -7,8 +7,10 @@ The loop is restartable at any instant:
   * checkpoints are atomic (training/checkpoint.py),
   * the subnets a step samples come from a generator seeded with the step.
 
-The reference's elastic restore onto another mesh (``plan``) comes with
-distribution.
+With a ``plan`` (``distributed.sharding.ShardingPlan``) a resume places
+the parameters with ``plan.params`` and the AdamW moments with the ZeRO-1
+``optimizer.state_shardings`` over the plan's mesh, as the reference's
+elastic restore does: a checkpoint saved on one mesh resumes on another.
 """
 from __future__ import annotations
 
@@ -62,8 +64,10 @@ def _requires_grad(params):
 class Trainer:
     def __init__(self, cfg, opt_cfg: opt.AdamWConfig, tcfg: TrainerConfig,
                  task: data_mod.SyntheticTask, *, n_random: int = 1,
-                 step_fn: Optional[Callable] = None, device=None):
+                 step_fn: Optional[Callable] = None, device=None,
+                 plan=None):
         self.cfg = cfg
+        self.plan = plan
         self.opt_cfg = opt_cfg
         self.tcfg = tcfg
         self.task = task
@@ -89,9 +93,16 @@ class Trainer:
         st = self.init_state(seed)
         last = ckpt.latest_step(self.tcfg.ckpt_dir)
         if last is not None:
+            shardings = mesh = None
+            if self.plan is not None:
+                shardings = {"params": self.plan.params(st.params),
+                             "opt": opt.state_shardings(self.plan,
+                                                        st.params)}
+                mesh = self.plan.mesh
             tree, extra = ckpt.restore(
                 self.tcfg.ckpt_dir, {"params": st.params,
-                                     "opt": st.opt_state})
+                                     "opt": st.opt_state},
+                shardings=shardings, mesh=mesh)
             st.params = _requires_grad(tree["params"])
             st.opt_state = tree["opt"]
             st.step = int(extra.get("step", last))

@@ -1,6 +1,6 @@
-"""The port's configurations beside qwen2-1.5b: the dense qwen2.5-14b,
-stablelm-3b and h2o-danube-3-4b, and the MoE mixtral-8x7b and
-llama4-maverick-400b-a17b.
+"""The port's dense configurations beside qwen2-1.5b: qwen2.5-14b,
+stablelm-3b and h2o-danube-3-4b (the MoE ones: ``test_torch_configs_moe``,
+which takes its twins and test bodies from here).
 
 * The port's copies of the configs equal ``repro.configs`` field by field.
 * Tiny twins of each family at the head dims the attention kernels are
@@ -9,11 +9,8 @@ llama4-maverick-400b-a17b.
   the weights of ``lm.init_model`` copied across through numpy (fp32,
   2e-3): stablelm-3b's at head_dim 80 (MHA, layernorm, 25% rotary),
   h2o-danube-3-4b's at 120 (G = 4, a sliding window the decode steps run
-  past) and qwen2.5-14b's at 128 (G = 5, QKV bias); the MoE configs'
-  ``reduced()`` with experts of d_ff 512 (so that switch mode has three
-  widths): mixtral's top-2 with elastic k and a window of 8, llama4's top-1
-  with a shared expert in the ``(attn, moe, attn, mlp)`` unit. Each
-  config's own ``reduced()`` runs forward for every subnet.
+  past) and qwen2.5-14b's at 128 (G = 5, QKV bias). Each config's own
+  ``reduced()`` runs forward for every subnet.
 * ``lm.from_jax_params`` converts each of those trees.
 """
 import dataclasses
@@ -47,6 +44,8 @@ TWINS = {
     # qwen2.5-14b: G = 5 and QKV bias
     "qwen14b-h128": lambda: tiny_dense(n_heads=10, n_kv_heads=2,
                                        head_dim=128, qkv_bias=True),
+}
+MOE_TWINS = {
     # the MoE family: capacity dispatch, elastic top-k, a shared expert
     # (mixtral's with a window of 8 slots, which the decode steps wrap)
     "mixtral-moe512": lambda: jget_config("mixtral-8x7b").reduced().replace(
@@ -54,12 +53,28 @@ TWINS = {
     "llama4-moe512": lambda: jget_config(
         "llama4-maverick-400b-a17b").reduced().replace(moe_d_ff=512),
 }
+ALL_TWINS = {**TWINS, **MOE_TWINS}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for the twins' many small ops: under the
+    parallel test workers each extra thread only adds contention."""
+    import torch
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 DECODE_STEPS = 12        # past the danube twin's window of 8 slots
 
 
-@pytest.mark.parametrize("name", NAMES + ("qwen2-1.5b",) + MOE_NAMES
+@pytest.mark.parametrize("name", NAMES + ("qwen2-1.5b",)
                          + ("zamba2-2.7b", "xlstm-125m"))
 def test_port_config_equals_jax_config(name):
+    check_config_equals_jax(name)
+
+
+def check_config_equals_jax(name):
     """The port's copy has every field of ``repro``'s, equal (a drift
     test), and the registry lists it."""
     want, got = jget_config(name), tget_config(name)
@@ -94,37 +109,10 @@ def test_config_shapes_reach_the_kernels():
             assert 0 < wid <= seg and wid % hd == 0
 
 
-def test_moe_config_shapes_reach_the_kernels():
-    """The MoE configs' attention at head_dim 128 with G = 4 (mixtral, a
-    4096 window) and G = 5 (llama4); wo segments of 512 and 640; the
-    expert widths of switch mode multiples of 8, one per ``ffn_bucket``;
-    elastic k of 1 and 2 (mixtral) and 1 (llama4)."""
-    from repro_torch.kernels import decode_attention as da
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.models import attention as tattn
-    want = {"mixtral-8x7b": (4, 4096, 512, (1, 2), 14336),
-            "llama4-maverick-400b-a17b": (5, 0, 640, (1,), 8192)}
-    for name, (G, window, seg, ks, f) in want.items():
-        cfg = tget_config(name)
-        assert cfg.family == "moe" and cfg.resolved_head_dim == 128
-        assert 128 in fa.HEAD_DIMS and 128 in da.HEAD_DIMS
-        assert tsn.head_group_size(cfg) == G and cfg.sliding_window == window
-        assert cfg.n_heads * 128 // tattn.wo_segments(cfg) == seg
-        assert cfg.resolved_moe_d_ff == f
-        opts = tsn.width_options(cfg)["moe_ffn"]
-        assert opts == [f // 2, 3 * f // 4, f]
-        got_k = set()
-        for sub in tsn.enumerate_space(cfg):
-            ctrl = tsn.make_control(cfg, sub)
-            assert int(ctrl["moe_ffn_width"]) == opts[int(ctrl["ffn_bucket"])]
-            got_k.add(int(ctrl["topk"]))
-        assert got_k == set(ks)
-
-
 @functools.lru_cache(maxsize=None)
 def _build(name):
-    if name in TWINS:
-        jcfg = TWINS[name]()
+    if name in ALL_TWINS:
+        jcfg = ALL_TWINS[name]()
     else:
         jcfg = jget_config(name[:-len("-reduced")]).reduced()
     jparams = jlm.init_model(jax.random.PRNGKey(3), jcfg)
@@ -183,7 +171,7 @@ def test_forward_and_prefill_match_jax_for_every_subnet(model, slice_mode):
         np.testing.assert_allclose(got.numpy(),
                                    np.asarray(fwd(jparams, toks, jctrl)),
                                    **TOL, err_msg=f"{name} forward {tsub}")
-        if name in TWINS:
+        if name in ALL_TWINS:
             got = tlm.prefill(tparams, tcfg, {"tokens": toks}, tctrl,
                               slice_mode=slice_mode)
             np.testing.assert_allclose(got.numpy(),

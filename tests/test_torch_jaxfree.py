@@ -258,6 +258,49 @@ print("ok")
     assert proc.stdout.strip().splitlines()[-1] == "ok"
 
 
+def test_distribution_modules_import_without_jax_or_repro():
+    """The int8 and distribution slice's modules (quantization, the
+    sharding plan and its DTensor helpers, the collectives, elastic
+    reshard, the mesh, specs and dry-run launchers, the roofline and the
+    int8 all-reduce) import under the blocker, and there a reduced
+    qwen2-1.5b is quantized and one decode step with int8 weights is
+    traced on a fake 8-rank mesh; ``chip_smoke.py`` has phase 15."""
+    child = _CHILD.split("import repro_torch")[0] + r"""
+import importlib.util
+import torch
+from repro_torch.configs import get_config
+from repro_torch.configs.base import ShapeSpec
+from repro_torch.distributed import (collectives, elastic, placement,
+                                     sharding)
+from repro_torch.launch import dryrun, mesh, specs
+from repro_torch.models import lm
+from repro_torch.roofline import aggregate, comm, hw, report
+from repro_torch.serving import quantize
+from repro_torch.training import compress
+cfg = get_config("qwen2-1.5b").reduced()
+q, sc = quantize.quantize_tree(lm.init_model(cfg, device="cpu"))
+assert quantize.quantized_bytes(q) > 0
+dryrun.ensure_fake_group(8)
+rec = dryrun.trace_cell(cfg, ShapeSpec("mini", "decode", 64, 8),
+                        mesh.make_mesh((4, 2), ("data", "model")),
+                        int8_weights=True)
+assert rec["status"] == "ok" and rec["t_memory"] > 0
+spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
+smoke = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(smoke)
+assert callable(smoke.phase_dist) and callable(smoke.nccl_world1)
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+assert not leaked, leaked
+print("ok")
+"""
+    proc = subprocess.run(
+        [sys.executable, "-c", child.format(blocked=BLOCKED)],
+        cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+        capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "ok"
+
+
 def test_no_source_names_jax_or_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py", ROOT / "tools" / "flash_bench.py",

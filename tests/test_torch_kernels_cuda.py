@@ -1098,3 +1098,88 @@ def test_training_step_on_card(cuda):
         assert n.get("subnet_rmsnorm", 0) > 0
         assert (n.get("sliced_matmul", 0) > 0) == (mode == "switch")
     assert all(p.requires_grad for p in tree_leaves(params))
+
+
+# --------------------------------------------------------------------------
+# int8 weights and distribution on the card (chip_smoke.py phase 15)
+# --------------------------------------------------------------------------
+
+
+def test_int8_tree_on_card_equals_cpu_and_walks_close(cuda):
+    """``quantize_tree`` of a small bf16 model on the card gives the CPU's
+    int8 tree and scales bit for bit, and the int8 prefill through the
+    kernels stays within 2e-2 of max |logit| of the CPU's fp32 prefill on
+    the same dequantized weights."""
+    from repro_torch import compat
+    from repro_torch.core import subnet as sn
+    from repro_torch.models import lm
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.serving import quantize as QZ
+    cfg = _small_cfg()
+    params = lm.init_model(cfg, torch.Generator(device=cuda).manual_seed(3),
+                           cuda)
+    q, sc = QZ.quantize_tree(params)
+    cpu = dict(zip(("q", "sc"), QZ.quantize_tree(
+        tree_map(lambda t: t.cpu(), params))))
+    for a, b in zip(tree_leaves(q), tree_leaves(cpu["q"])):
+        assert torch.equal(a.cpu(), b)
+    for a, b in zip(tree_leaves(sc), tree_leaves(cpu["sc"])):
+        assert torch.equal(a.cpu(), b)
+    # a full-width projection: 8960 channels of 1536, bf16
+    w = _randn(torch.Generator(device=cuda).manual_seed(7), 1536, 8960,
+               dev=cuda) * 0.02
+    wq, ws = QZ.quantize_tree({"w": w})
+    cq, cs = QZ.quantize_tree({"w": w.cpu()})
+    assert torch.equal(wq["w"].cpu(), cq["w"])
+    assert torch.equal(ws["w"].cpu(), cs["w"])
+    toks = torch.randint(0, cfg.vocab_size, (2, 16),
+                         generator=torch.Generator().manual_seed(4))
+    ctrl = sn.make_control(cfg, sn.max_subnet(cfg))
+    compat.reset_launch_counts()
+    got = lm.prefill(QZ.dequantize_tree(q, sc), cfg,
+                     {"tokens": toks.to(cuda)}, ctrl).float().cpu()
+    assert compat.launch_counts().get("flash_attention", 0) > 0
+    want = lm.prefill(QZ.dequantize_tree(cpu["q"], cpu["sc"],
+                                         dtype=torch.float32),
+                      cfg.replace(dtype="float32"), {"tokens": toks},
+                      ctrl).float()
+    assert float((got - want).abs().max()) <= 2e-2 * float(want.abs().max())
+
+
+def test_nccl_world1_seq_decode_and_sharded_restore(cuda, tmp_path):
+    """NCCL at world size 1 on a (1, 1) mesh: ``seq_sharded_decode`` at the
+    served decode shapes against the decode kernel, and a checkpoint of a
+    placed tree restored onto the plan's placements bit for bit."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from repro_torch.distributed import collectives, elastic
+    from repro_torch.distributed.sharding import ShardingPlan
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.training import checkpoint as ckpt
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device_type="cuda")
+        gen = torch.Generator(device=cuda).manual_seed(5)
+        q = _randn(gen, 8, 12, 1, 128, dev=cuda)
+        k, v = (_randn(gen, 8, 2, 2048, 128, dev=cuda) for _ in range(2))
+        want = kops.decode_attention(q, k, v, _i32(1500, cuda))
+        kd, vd = (distribute_tensor(t, mesh, [Shard(2), Replicate()])
+                  for t in (k, v))
+        got = collectives.seq_sharded_decode(mesh, q, kd, vd, 1500)
+        torch.testing.assert_close(got.float(), want.float(), **TOL)
+        cfg = _small_cfg()
+        params = lm.init_model(cfg, torch.Generator(device=cuda).manual_seed(6),
+                               cuda)
+        plan = ShardingPlan(mesh, cfg)
+        ckpt.save(str(tmp_path / "ck"), 1,
+                  elastic.reshard_params(params, plan))
+        back, _ = ckpt.restore(str(tmp_path / "ck"), params,
+                               shardings=plan.params(params), mesh=mesh)
+        for a, b in zip(tree_leaves(params), tree_leaves(back)):
+            assert torch.equal(b.full_tensor(), a)
+    finally:
+        dist.destroy_process_group()

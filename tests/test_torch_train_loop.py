@@ -196,7 +196,9 @@ def test_checkpoint_atomicity_corruption_and_prune(tmp_path):
     restored, _ = tckpt.restore(d, tree)
     assert all(torch.equal(a, b) for a, b in
                zip(tree_leaves(restored), tree_leaves(tree)))
-    with pytest.raises(NotImplementedError, match="distribution"):
+    # placements without the mesh they lie on are refused (restore onto
+    # shardings itself: tests/test_torch_dist.py)
+    with pytest.raises(ValueError, match="mesh"):
         tckpt.restore(d, tree, shardings={})
     victim = sorted(f for f in os.listdir(path) if f.endswith(".npy"))[0]
     with open(os.path.join(path, victim), "r+b") as f:

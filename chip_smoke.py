@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # all phases, one CUDA device
     python3 chip_smoke.py --quick    # build + kernel checks only
     python3 chip_smoke.py --dist     # build + phase 15 only
+    python3 chip_smoke.py --graphs [ARCH ...]  # build + phase 5b only
 
 Phases, one result line each:
 
@@ -52,8 +53,10 @@ Phases, one result line each:
    ``torch.bmm`` on the active block and the bound.
 3. Serve: ``repro_torch.launch.serve`` at the full width and depth of
    qwen2-1.5b (random weights from a seeded ``torch.Generator``), SlackFit
-   through the port's Router; every query must be answered, the serve
-   phase must build no kernel, and every kernel must have launched.
+   through the port's Router and the executor's CUDA graphs; every query
+   must be answered, the warmup must have captured graphs, the serve phase
+   must build no kernel and capture no graph, and every kernel must have
+   launched (a replay counts the launches its capture recorded).
 4. Decode: 8 greedy ``SubnetExecutor.decode_step`` steps for the smallest
    and the largest Pareto subnet; finite logits, decode kernel launched.
 5. Switch: WeightSlice switch mode on the same full-width weights as a
@@ -62,10 +65,25 @@ Phases, one result line each:
    subnet against mask mode, then ``launch.serve --slice-mode switch``
    (32 queries, SlackFit): every query answered, no build, and
    ``sliced_matmul`` launched.
+5b. Graphs: the compiled executor (one CUDA graph per warmed entry and
+   depth pattern, ``ExecutorConfig(use_graphs=True)``, the default)
+   against the eager one (``use_graphs=False``) over one parameter tree,
+   for qwen2-1.5b in mask and switch mode, zamba2-2.7b and xlstm-125m at
+   full depth and mixtral-8x7b at 16 layers (``GRAPH_CONFIGS``): every
+   Pareto subnet's prefill logits (B = 8, S = 16) and 4 greedy decode
+   steps, graph against eager (within 2e-2 of max |logit|; the bitwise
+   count reported); 0 builds, 0 captures and no entry built over a pass of
+   every subnet and bucket after warmup; the widest subnet's prefill and
+   decode step through graphs traced (host wall, device ms, idle share,
+   device kernels; phases 6, 9 and 10 trace the eager steps), their
+   launches equal to the eager step's, the graph's replay timed by CUDA
+   events, a decode step's cache copies, the capture seconds and
+   graph pool bytes. ``--graphs [ARCH ...]`` runs it alone.
 6. Trace: where a warmed full-width prefill and decode step spend their
    time (host wall clock, device kernel time from ``torch.profiler``, the
    device's idle share, the device kernels and ``aten::add`` calls a
-   step, the top kernels, the launches of each kernel),
+   step, the top kernels, the launches of each kernel; eager steps, as
+   phases 8-10 and 14 trace them),
    and a switch-mode prefill of the widest and the narrowest full-depth
    subnet, with the flash kernel's device ms in each.
 7. Reference: the full-width model cut to 2 layers, kernels in bf16 on the
@@ -106,19 +124,22 @@ Phases, one result line each:
    3's B = 1 latencies give by the launcher's rule, passed as ``--rate``
    and ``--slo-ms`` and echoed back: (a) ``launch.serve`` in process on
    a bursty trace at CV² 8, then a time-varying one at tau 500, every
-   query served with no build; (b) two in-process replicas of one
-   executor (``--replicas 2 --placement slack_aware``) in switch mode,
-   each replica serving, ``sliced_matmul`` launched; (c) two replica
-   child processes over socketpairs (``ClusterRouter(transport="proc",
-   execute="real")``), each building the model on the card: each hello
-   names the card, every query served, each child warm (0 builds) with
-   flash and the norm launched in it, 4 completions held within 2e-2 of
-   max |logit| to an in-process executor from the same seed at the
-   subnet each reports, spawn-to-hello seconds, the frame's encode and
-   decode ms and each child's step ms beside the in-process one; (d)
+   query served with no build or capture; (b) two in-process replicas of
+   one executor (``--replicas 2 --placement slack_aware``) in switch
+   mode, each replica serving, ``sliced_matmul`` launched; (c) 32
+   queries through two replica child processes over socketpairs
+   (``ClusterRouter(transport="proc", execute="real")``), each building
+   the model on the card and serving through its graphs, paced by the
+   same rule for two replicas on the latency through the wire (the step,
+   then the completion frame's encode and decode ms, measured first):
+   each hello names the card, every query served, each child warm (0
+   builds, 0 captures) with flash and the norm launched in it, 4
+   completions bit for bit an in-process executor's from the same seed
+   at the subnet each reports, spawn-to-hello seconds and each child's
+   step ms beside the in-process one; (d)
    ``--transport proc --listen 127.0.0.1:0 --autoscale`` (1 to 2
-   children over TCP): every query accounted for, every child warm, the
-   scale events printed; (e) ``--execute sim --profile measured
+   children over TCP, paced as (c)): every query accounted for, every
+   child warm, the scale events printed; (e) ``--execute sim --profile measured
    --replicas 4``: the profile measured on the card, positive and not
    falling with batch. The profile is measured once, by (a)'s first run,
    and reused by the other runs that schedule from one ((b)'s switch
@@ -247,51 +268,105 @@ def time_ms(torch, fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
+def trace_intact(one, many, n: int) -> bool:
+    """Whether a trace of ``n`` calls kept every event: ``one`` and
+    ``many`` count the device kernels by name in a trace of one call and
+    of ``n`` calls, and each name must come ``n`` times as often in the
+    second (a name missing from either, or short, is a lost event)."""
+    return bool(one) and set(one) == set(many) \
+        and all(many[name] == n * c for name, c in one.items())
+
+
+# traces taken of one measurement before it reads "not measured"
+TRACE_TRIES = 3
+
+
+def lost_events(one, many, n: int, top: int = 4):
+    """The names whose counts break :func:`trace_intact`: (name, n times
+    the one-call count, the n-call count), the largest gaps first."""
+    gaps = [(name[:60], n * one.get(name, 0), many.get(name, 0))
+            for name in set(one) | set(many)
+            if many.get(name, 0) != n * one.get(name, 0)]
+    return sorted(gaps, key=lambda g: -abs(g[1] - g[2]))[:top]
+
+
+# host seconds kept between a profiler window's edge and the card's work
+TRACE_GUARD_S = 0.002
+
+
+def profiled(torch, fn, n: int):
+    """The torch.profiler events (host and device) of ``n`` calls of
+    ``fn``, after one call traced and dropped, each call TRACE_GUARD_S
+    clear of the window's edges: the tracer drops the device events it
+    dates before its window opens, and the card's clock, mapped onto the
+    host's, can date the first kernel after an edge before it."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=n,
+                                   repeat=1)) as prof:
+        for _ in range(n + 1):
+            time.sleep(TRACE_GUARD_S)
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(TRACE_GUARD_S)
+            prof.step()
+    return prof.events()
+
+
+def on_device(torch, ev) -> bool:
+    """Whether a profiler event is the card's work (a kernel or a copy),
+    not a host op or the span the profiler's step annotation draws over
+    the device."""
+    return ev.device_type == torch.autograd.DeviceType.CUDA \
+        and not getattr(ev, "is_user_annotation", False) \
+        and not ev.name.startswith("ProfilerStep")
+
+
+def kernel_trace(torch, fn, n: int):
+    """(kernel names counted, device us summed) of ``n`` calls of ``fn``
+    under torch.profiler (:func:`profiled`)."""
+    from collections import Counter
+    us, names = 0.0, Counter()
+    for ev in profiled(torch, fn, n):
+        if on_device(torch, ev):
+            t = getattr(ev, "self_device_time_total", None)
+            us += ev.self_cuda_time_total if t is None else t
+            names[ev.name] += 1
+    return names, us
+
+
+def intact_trace(torch, fn, n: int):
+    """(names, device us) of ``n`` calls of ``fn`` from a trace that kept
+    every event, checked against a trace of one call (the warm call first,
+    then a fresh one each try, :func:`trace_intact`); None, with the last
+    try's lost events printed, after TRACE_TRIES traces that lost
+    events."""
+    for _ in range(TRACE_TRIES):
+        one, _ = kernel_trace(torch, fn, 1)
+        names, us = kernel_trace(torch, fn, n)
+        if us > 0 and trace_intact(one, names, n):
+            return names, us
+    say("trace-lost-events", calls=n, lost=lost_events(one, names, n))
+    return None
+
+
 def device_ms(torch, fn, n: int = 20):
     """The device's own kernel time per call of ``fn``, from
     torch.profiler (for the small kernels the CUDA-event time of
-    :func:`time_ms` is the host's launch rate). A trace holding fewer than
-    ``n`` launches of its most frequent kernel lost events and would read
-    low: it is taken again, and after three "not measured"."""
-    from collections import Counter
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(3):                # a trace that lost events: again
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-        us, names = 0.0, Counter()
-        for ev in prof.events():
-            if ev.device_type == torch.autograd.DeviceType.CUDA:
-                t = getattr(ev, "self_device_time_total", None)
-                us += ev.self_cuda_time_total if t is None else t
-                names[ev.name] += 1
-        if us > 0 and max(names.values()) >= n:
-            return us / n / 1e3
-    return "not measured"
+    :func:`time_ms` is the host's launch rate), from a trace that kept
+    every event (:func:`intact_trace`); else "not measured"."""
+    got = intact_trace(torch, fn, n)
+    return "not measured" if got is None else got[1] / n / 1e3
 
 
 def device_kernels(torch, fn, n: int = 3):
     """The names of the device kernels that ``n`` calls of ``fn`` run, from
-    torch.profiler. A trace that holds fewer device events than calls lost
-    events (as :func:`device_ms` finds now and then; it cannot hide an
-    extra kernel) and is taken again, up to three times."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-        names = [ev.name for ev in prof.events()
-                 if ev.device_type == torch.autograd.DeviceType.CUDA]
-        if len(names) >= n:
-            return names
-    return names
+    torch.profiler, from a trace that kept every event
+    (:func:`intact_trace`); fails after three that lost events."""
+    got = intact_trace(torch, fn, n)
+    if got is None:
+        fail(f"{TRACE_TRIES} traces lost device events")
+    return list(got[0].elements())
 
 
 _NORM_TYPES = {"13__nv_bfloat16": "bf16", "6__half": "f16", "f": "f32"}
@@ -1014,13 +1089,17 @@ def phase_serve(torch):
         lat_slow_ms=out["lat_slow_ms"], init_seconds=out["init_seconds"],
         warmup=out["warmup"], executor=out["executor"],
         serve_phase_launches=out["kernel_launches"], launches=launches,
-        serve_phase_builds=out["serve_phase_builds"])
+        serve_phase_builds=out["serve_phase_builds"],
+        serve_phase_captures=out["serve_phase_captures"])
     if out["size"] != "full":
         fail("serve did not run the full-width model")
     if out["queries"] < 1 or out["served"] != out["queries"]:
         fail(f"served {out['served']} of {out['queries']} queries")
-    if out["serve_phase_builds"] != 0:
-        fail(f"serve phase built {out['serve_phase_builds']} kernels")
+    if out["serve_phase_builds"] != 0 or out["serve_phase_captures"] != 0:
+        fail(f"serve phase built {out['serve_phase_builds']} kernels and "
+             f"captured {out['serve_phase_captures']} graphs")
+    if not out["executor"]["graph_captures"]:
+        fail("serve: the executor captured no graph at warmup")
     for name in ("subnet_rmsnorm", "flash_attention"):
         if out["kernel_launches"].get(name, 0) <= 0:
             fail(f"{name} never launched while serving")
@@ -1118,27 +1197,192 @@ def phase_switch(torch):
         slo_ms=out["slo_ms"], lat_fast_ms=out["lat_fast_ms"],
         lat_slow_ms=out["lat_slow_ms"], warmup=out["warmup"],
         serve_phase_launches=out["kernel_launches"],
-        serve_phase_builds=out["serve_phase_builds"], **decode)
+        serve_phase_builds=out["serve_phase_builds"],
+        serve_phase_captures=out["serve_phase_captures"], **decode)
     if out["slice_mode"] != "switch" or out["size"] != "full":
         fail("switch serve did not run full-width switch mode")
     if out["queries"] < 1 or out["served"] != out["queries"]:
         fail(f"switch served {out['served']} of {out['queries']} queries")
-    if out["serve_phase_builds"] != 0:
-        fail(f"switch serve phase built {out['serve_phase_builds']} kernels")
+    if out["serve_phase_builds"] != 0 or out["serve_phase_captures"] != 0:
+        fail(f"switch serve phase built {out['serve_phase_builds']} kernels "
+             f"and captured {out['serve_phase_captures']} graphs")
     if out["kernel_launches"].get("sliced_matmul", 0) <= 0:
         fail("sliced_matmul never launched while serving in switch mode")
     return {k: parity_launches.get(k, 0) + serve_launches.get(k, 0)
             for k in set(parity_launches) | set(serve_launches)}
 
 
+# the compiled executor's configs: (config, repeat units on the card, slice
+# modes) -- the main path in both modes, the SSM family at full depth and
+# mixtral at phase 9's cut
+GRAPH_CONFIGS = (("qwen2-1.5b", None, ("mask", "switch")),
+                 ("zamba2-2.7b", None, ("mask",)),
+                 ("xlstm-125m", None, ("mask",)),
+                 ("mixtral-8x7b", 16, ("mask",)))
+# greedy decode steps of every subnet, graph against eager
+GRAPH_DECODE_STEPS = 4
+
+
+def phase_graphs(torch, card, names=()):
+    """Phase 5b: the compiled executor (one CUDA graph per warmed entry and
+    depth pattern) against the eager one (``use_graphs=False``) over one
+    parameter tree, for each config of GRAPH_CONFIGS, or those of them
+    ``names`` names (:func:`graph_run`). Returns the kernel launches of
+    each run."""
+    launches = []
+    for name, units, modes in GRAPH_CONFIGS:
+        if not names or name in names:
+            launches += graph_run(torch, card, name, units, modes)
+    return launches
+
+
+def graph_run(torch, card, name: str, units, modes):
+    """One config at its published widths: for each slice mode, a graph
+    executor and an eager one over the same weights, each warmed at
+    batches 1 and 8, seq 16, prefill and decode. Every Pareto subnet's
+    prefill logits (B = 8, S = 16) and GRAPH_DECODE_STEPS greedy decode
+    steps, graph against eager (max |diff| within 2e-2 of max |logit|, the
+    bitwise count reported), then a pass over every subnet and bucket: no
+    build and no capture after warmup, and no entry built. The warmup
+    captures one graph per entry and depth pattern; its seconds and pool
+    bytes. Then the widest subnet's prefill and decode step through
+    graphs (:func:`trace_steps`): host wall, device ms, idle share, device
+    kernels, and launches, which must equal the eager step's (a replay
+    counts the launches its capture recorded); the eager steps are traced
+    by phases 6, 9 and 10. Returns the launches of each mode."""
+    import numpy as np
+    from repro_torch import compat
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.serving.executor import (ExecutorConfig, SubnetExecutor,
+                                              cut_units)
+    cfg = cut_units(get_config(name), units)
+    params = lm.init_model(cfg, torch.Generator(device="cuda").manual_seed(11),
+                           "cuda")
+    kinds = {k for st in cfg.stages for k in st.pattern}
+    attn = "attn" in kinds or bool(cfg.shared_attn_period)
+    B, S = 8, 16
+    rng = np.random.default_rng(11)
+    toks = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    out = []
+    for mode in modes:
+        exs, warm = {}, {}
+        for graphs in (False, True):
+            ex = SubnetExecutor(params, cfg, exec_cfg=ExecutorConfig(
+                slice_mode=mode, use_graphs=graphs))
+            warm[graphs] = ex.warmup(batches=(1, B), seqs=(S,), decode=True)
+            exs[graphs] = ex
+        eager, graph = exs[False], exs[True]
+        n = graph.n_subnets
+        n_patterns = len(graph.patterns)
+        if warm[True]["graph_captures"] != 4 * n_patterns \
+                or warm[False]["graph_captures"] != 0:
+            fail(f"graphs {name} {mode}: warmup captured "
+                 f"{warm[True]['graph_captures']} graphs (eager "
+                 f"{warm[False]['graph_captures']}), not 4 entries x "
+                 f"{n_patterns} depth patterns")
+        compiles = graph.counters()["compiles"]
+        compat.reset_launch_counts()
+        prefill_err, decode_err, bitwise, total = [], [], 0, 0
+        with compat.BuildCounter() as bc, compat.CaptureCounter() as cc:
+            for idx in range(n):
+                want, got = eager.prefill(idx, toks), graph.prefill(idx, toks)
+                prefill_err.append(rel_err(got, want,
+                                           f"graphs {name} prefill {idx}"))
+                bitwise += int(np.array_equal(got, want))
+                total += 1
+                ce, cg = eager.init_cache(B, S), graph.init_cache(B, S)
+                tok = toks[:, :1]
+                for i in range(GRAPH_DECODE_STEPS):
+                    want, ce = eager.decode_step(idx, tok, ce, i)
+                    got, cg = graph.decode_step(idx, tok, cg, i)
+                    decode_err.append(rel_err(
+                        got, want, f"graphs {name} decode {idx} step {i}"))
+                    bitwise += int(np.array_equal(got, want))
+                    total += 1
+                    tok = want.argmax(-1).astype(np.int32)[:, None]
+                # the batch-1 buckets
+                graph.prefill(idx, toks[:1])
+                graph.decode_step(idx, toks[:1, :1], graph.init_cache(1, S), 0)
+        launches = compat.launch_counts()
+        if bc.count or cc.count or graph.counters()["compiles"] != compiles:
+            fail(f"graphs {name} {mode}: {bc.count} builds, {cc.count} "
+                 f"captures, {graph.counters()['compiles'] - compiles} "
+                 f"entries built after warmup")
+        need = ["subnet_rmsnorm"] + (["flash_attention", "decode_attention"]
+                                     if attn else [])
+        if mode == "switch":
+            need.append("sliced_matmul")
+        for kernel in need:
+            if launches.get(kernel, 0) <= 0:
+                fail(f"graphs {name} {mode}: {kernel} never launched")
+        caches = {g: ex.init_cache(B, S) for g, ex in exs.items()}
+        idx = n - 1
+
+        def steps(g):
+            ex, c = exs[g], caches[g]
+            return {"prefill": lambda: ex.prefill(idx, toks),
+                    "decode": lambda: ex.decode_step(idx, toks[:, :1], c, 3)}
+
+        # the eager steps are traced by phases 6, 9 and 10
+        rows = {f"{kind}_graph": row for kind, row in trace_steps(
+            torch, steps(True), n=CONFIG_TRACE_STEPS).items()}
+        for kind, step in steps(False).items():
+            compat.reset_launch_counts()
+            step()
+            if rows[f"{kind}_graph"]["launches"] != compat.launch_counts():
+                fail(f"graphs {name} {mode} {kind}: a replay counts "
+                     f"{rows[f'{kind}_graph']['launches']}, the eager step "
+                     f"launches {compat.launch_counts()}")
+        # the device's own time of the step: its graph replayed back to
+        # back under CUDA events, no profiler; and a decode step's copies
+        # of the caller's cache into the graph's and back
+        key = graph.ctrls[idx]["layer_gate"].tobytes()
+        for kind in ("prefill", "decode"):
+            row = rows[f"{kind}_graph"]
+            row["replay_ms"] = time_ms(
+                torch, graph._get(kind, B, S).replays[key], iters=20)
+            row["replay_idle_share"] = 1 - row["replay_ms"] / row["wall_ms"]
+        mine = list(_leaves(graph._get("decode", B, S).state))
+        theirs = list(_leaves(caches[True].state))
+        rows["decode_graph"]["cache_bytes"] = sum(
+            t.numel() * t.element_size() for t in theirs)
+        rows["decode_graph"]["cache_copy_ms"] = (
+            time_ms(torch, lambda: torch._foreach_copy_(mine, theirs),
+                    iters=20)
+            + time_ms(torch, lambda: torch._foreach_copy_(theirs, mine),
+                      iters=20))
+        gc_ = graph.counters()
+        say("graphs", arch=name, units=sum(st.repeat for st in cfg.stages),
+            mode=mode, subnets=n, depth_patterns=n_patterns, batch=B, seq=S,
+            decode_steps=GRAPH_DECODE_STEPS,
+            max_rel_err_prefill=max(prefill_err),
+            max_rel_err_decode=max(decode_err), bitwise_equal=bitwise,
+            compared=total, tol="2e-2 of max|eager logit|",
+            captures_at_warmup=warm[True]["graph_captures"],
+            warmup_seconds={"graph": warm[True]["seconds"],
+                            "eager": warm[False]["seconds"]},
+            capture_seconds=gc_["capture_seconds"],
+            graph_pool_bytes=gc_["graph_pool_bytes"],
+            builds_after_warmup=bc.count, captures_after_warmup=cc.count,
+            launches=launches, card=card.name, steps=rows)
+        out.append(launches)
+        del exs, eager, graph, caches
+        _free(torch)
+    del params
+    _free(torch)
+    return out
+
+
 def phase_trace(torch, symbols=PORT_KERNEL_SYMBOLS):
     """Where a warmed full-width prefill (B=8, S=16, largest subnet), a
     decode step, and a switch-mode prefill of the widest and the narrowest
-    full-depth subnet spend their time: host wall clock (median of 10,
+    full-depth subnet spend their time: host wall clock (median of 3,
     taken in rounds over the four) against device kernel time from
     torch.profiler, and the kernel launches of each; the device ms and
     launches of each kernel whose name holds one of ``symbols``
-    (:func:`trace_steps`)."""
+    (:func:`trace_steps`). Eager steps (``use_graphs=False``): phase 5b
+    traces the graph path beside them."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.serving.executor import build_executor
@@ -1146,7 +1390,8 @@ def phase_trace(torch, symbols=PORT_KERNEL_SYMBOLS):
     from repro_torch.core.pareto import ParetoPoint
     from repro_torch.serving.executor import ExecutorConfig, SubnetExecutor
     cfg = get_config("qwen2-1.5b")
-    ex = build_executor(cfg, seed=0, device="cuda")
+    ex = build_executor(cfg, seed=0, device="cuda",
+                        exec_cfg=ExecutorConfig(use_graphs=False))
     ex.warmup(batches=(8,), seqs=(16,), decode=True)
     # switch mode over the same weights: the widest subnet and the
     # narrowest at full depth (FFN 0.5, heads 0.5)
@@ -1155,7 +1400,8 @@ def phase_trace(torch, symbols=PORT_KERNEL_SYMBOLS):
     sw = SubnetExecutor(ex.params, cfg,
                         points=[ParetoPoint(sub, 0.0, 0.0, 0.0)
                                 for sub in (sn.max_subnet(cfg), narrow)],
-                        exec_cfg=ExecutorConfig(slice_mode="switch"))
+                        exec_cfg=ExecutorConfig(slice_mode="switch",
+                                                use_graphs=False))
     sw.warmup(batches=(8,), seqs=(16,))
     toks, idx = np.ones((8, 16), np.int32), ex.n_subnets - 1
     cache = ex.init_cache(8, 16)
@@ -1163,7 +1409,8 @@ def phase_trace(torch, symbols=PORT_KERNEL_SYMBOLS):
         "prefill": lambda: ex.prefill(idx, toks),
         "decode": lambda: ex.decode_step(idx, toks[:, :1], cache, 3),
         "switch_prefill_widest": lambda: sw.prefill(0, toks),
-        "switch_prefill_narrowest": lambda: sw.prefill(1, toks)}, symbols)
+        "switch_prefill_narrowest": lambda: sw.prefill(1, toks)}, symbols,
+        n=3)
     # the flash kernel's device ms in the switch prefills: the narrowest
     # computes half the heads of the widest
     flash = {kind: report[kind]["port_kernels_ms"].get(
@@ -1183,12 +1430,13 @@ def trace_steps(torch, steps, symbols=PORT_KERNEL_SYMBOLS, n: int = 10):
     """Each warmed step of ``steps`` (kind -> fn): its launches, host wall
     clock (median of ``n``, taken in rounds over the kinds, so a drift of
     the shared host does not favour the kind measured first), device
-    kernel time from torch.profiler over ``n`` more, the device's idle
-    share, device kernels and ``aten::add`` calls a step, the top kernels,
+    kernel time from torch.profiler over ``n`` more (a trace that kept
+    every event, :func:`trace_intact`, else "not measured"), the device's
+    idle share, device kernels and ``aten::add`` calls a step, the top
+    kernels,
     and the device ms and launches of each kernel whose name holds one of
     ``symbols``."""
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch import compat
     launches, walls = {}, {kind: [] for kind in steps}
     for kind, step in steps.items():
@@ -1207,20 +1455,23 @@ def trace_steps(torch, steps, symbols=PORT_KERNEL_SYMBOLS, n: int = 10):
     report = {}
     for kind, step in steps.items():
         wall_ms = float(np.median(walls[kind]))
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                step()
-        per_kernel, adds = {}, 0
-        for ev in prof.events():
-            adds += ev.name == "aten::add"
-            if ev.device_type == torch.autograd.DeviceType.CUDA:
-                us = getattr(ev, "self_device_time_total", None)
-                if us is None:
-                    us = ev.self_cuda_time_total
-                tot, cnt = per_kernel.get(ev.name, (0.0, 0))
-                per_kernel[ev.name] = (tot + us, cnt + 1)
-        dev_ms = sum(t for t, _ in per_kernel.values()) / n / 1e3
+        for _ in range(TRACE_TRIES):  # a trace that lost events: again
+            one, _ = kernel_trace(torch, step, 1)
+            per_kernel, adds = {}, 0
+            for ev in profiled(torch, step, n):
+                adds += ev.name == "aten::add"
+                if on_device(torch, ev):
+                    us = getattr(ev, "self_device_time_total", None)
+                    if us is None:
+                        us = ev.self_cuda_time_total
+                    tot, cnt = per_kernel.get(ev.name, (0.0, 0))
+                    per_kernel[ev.name] = (tot + us, cnt + 1)
+            counts = {k: c for k, (_, c) in per_kernel.items()}
+            intact = trace_intact(one, counts, n)
+            if intact:
+                break
+        dev_ms = (sum(t for t, _ in per_kernel.values()) / n / 1e3
+                  if intact else 0.0)
         top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:6]
         port = {}
         for name, (us, cnt) in per_kernel.items():
@@ -1230,6 +1481,7 @@ def trace_steps(torch, steps, symbols=PORT_KERNEL_SYMBOLS, n: int = 10):
                     port[tag] = (ms + us / n / 1e3, c + cnt // n)
         report[kind] = dict(
             wall_ms=wall_ms,
+            lost_events=[] if intact else lost_events(one, counts, n),
             device_ms=dev_ms if dev_ms > 0 else "not measured",
             device_idle_share=(1 - dev_ms / wall_ms) if dev_ms > 0
             else "not measured",
@@ -1517,9 +1769,11 @@ def config_run(torch, card, name: str, units=None, reference: bool = True,
         if out["queries"] < 1 or out["served"] != out["queries"]:
             fail(f"{name} {mode}: served {out['served']} of "
                  f"{out['queries']} queries")
-        if out["serve_phase_builds"] != 0:
+        if out["serve_phase_builds"] != 0 \
+                or out["serve_phase_captures"] != 0:
             fail(f"{name} {mode}: serve phase built "
-                 f"{out['serve_phase_builds']} kernels")
+                 f"{out['serve_phase_builds']} kernels and captured "
+                 f"{out['serve_phase_captures']} graphs")
         for kernel in (("flash_attention",) if attn else ()) \
                 + (("subnet_rmsnorm",) if rms else ()) \
                 + (("sliced_matmul",) if mode == "switch" and sliced
@@ -1536,9 +1790,12 @@ def config_run(torch, card, name: str, units=None, reference: bool = True,
     params = lm.init_model(cfg, torch.Generator(device="cuda").manual_seed(4),
                            "cuda")
     n_params = sum(t.numel() for t in _leaves(params))
-    mask = SubnetExecutor(params, cfg)
-    switch = SubnetExecutor(params, cfg,
-                            exec_cfg=ExecutorConfig(slice_mode="switch"))
+    # eager: the walks are instrumented (Routes, BlockShadow), and a graph
+    # replay runs no Python of the model
+    mask = SubnetExecutor(params, cfg,
+                          exec_cfg=ExecutorConfig(use_graphs=False))
+    switch = SubnetExecutor(params, cfg, exec_cfg=ExecutorConfig(
+        slice_mode="switch", use_graphs=False))
     B, S, steps = 8, 16, 8
     ends = (0, mask.n_subnets - 1)
     toks = np.random.default_rng(5).integers(
@@ -1709,7 +1966,8 @@ def config_run(torch, card, name: str, units=None, reference: bool = True,
         sw = SubnetExecutor(params, cfg,
                             points=[ParetoPoint(sub, 0.0, 0.0, 0.0)
                                     for sub in (sn.max_subnet(cfg), half)],
-                            exec_cfg=ExecutorConfig(slice_mode="switch"))
+                            exec_cfg=ExecutorConfig(slice_mode="switch",
+                                                    use_graphs=False))
         sw.warmup(batches=(8,), seqs=(16,))
         trace.update(trace_steps(torch, {
             "switch_prefill_widest": lambda: sw.prefill(0, tt),
@@ -1739,7 +1997,7 @@ def config_run(torch, card, name: str, units=None, reference: bool = True,
     serve_keys = ("queries", "served", "slo_attainment", "p50_latency_ms",
                   "p99_latency_ms", "rate_qps", "slo_ms", "lat_fast_ms",
                   "lat_slow_ms", "init_seconds", "serve_phase_builds",
-                  "kernel_launches")
+                  "serve_phase_captures", "kernel_launches")
     say("config", arch=name, layers=sum(s.repeat for s in cfg.stages),
         units=units, d_model=cfg.d_model, heads=[cfg.n_heads, cfg.n_kv_heads],
         head_dim=cfg.resolved_head_dim, d_ff=cfg.d_ff, vocab=cfg.vocab_size,
@@ -1792,9 +2050,9 @@ MOE_MEAN_MARGIN = 0.002
 # the same for an SSM config, where nothing routes: about three standard
 # errors of zamba2's walk-to-walk spread (0.011 over 22 walks)
 SSM_MEAN_MARGIN = 0.007
-# steps a trace of phases 8-10 times and profiles (phase 6: 10); each
-# profiled step of a 54-unit model holds about 4,000 device kernels
-CONFIG_TRACE_STEPS = 5
+# steps a trace of phases 5b, 8-10 and 14 times and profiles (phase 6: 3);
+# each profiled step of a 54-unit model holds about 4,000 device kernels
+CONFIG_TRACE_STEPS = 2
 # the grouped sliced_matmul's launch count (kernels/sliced_matmul.py)
 GROUPED = "sliced_matmul.experts"
 
@@ -2125,7 +2383,6 @@ def dispatch_trace(torch, ex, idx, toks):
     inputs of the first MoE layer of a warmed prefill: ``route``,
     ``dispatch`` and ``combine`` (the slots standing in for the expert
     outputs, the same shape), their device kernels and device ms."""
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import moe as moe_mod
     cfg = ex.cfg
     with Routes() as rec:
@@ -2140,22 +2397,13 @@ def dispatch_trace(torch, ex, idx, toks):
                                        topk, cfg, cap)
         return moe_mod.combine(slots, meta, h.shape[1])
 
-    step()
-    torch.cuda.synchronize()
     n = 10
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            step()
-        torch.cuda.synchronize()
-    evs = [ev for ev in prof.events()
-           if ev.device_type == torch.autograd.DeviceType.CUDA]
-    us = 0.0
-    for ev in evs:
-        t = getattr(ev, "self_device_time_total", None)
-        us += ev.self_cuda_time_total if t is None else t
+    got = intact_trace(torch, step, n)
     return dict(tokens=h.shape[1], capacity=cap,
-                device_kernels_per_layer=len(evs) / n,
-                device_ms_per_layer=us / n / 1e3 if us else "not measured")
+                device_kernels_per_layer=(sum(got[0].values()) / n if got
+                                          else "not measured"),
+                device_ms_per_layer=(got[1] / n / 1e3 if got
+                                     else "not measured"))
 
 
 def fp32_oracle(torch, params, cfg, toks, ctrl, routes=(), flips=None,
@@ -2389,15 +2637,21 @@ def window_check(torch, cut, steps: int = 4):
 # --------------------------------------------------------------------------
 
 PLANE_QUERIES = 64
+# queries of the runs through replica children, paced by the wire
+WIRE_QUERIES = 32
 PLANE_SEED = 7
 PLANE_CHECKED = 4                  # child completions held to the executor
 
 
-def plane_pacing(lat_fast_ms: float, lat_slow_ms: float):
+def plane_pacing(lat_fast_ms: float, lat_slow_ms: float, replicas: int = 1):
     """Rate (q/s) and SLO (ms) from phase 3's B = 1 latencies by the
     launcher's own rule: 0.25 / the smallest subnet's, 25x the
-    largest's."""
-    return 0.25 / (lat_fast_ms / 1e3), lat_slow_ms * 25
+    largest's; the rate for ``replicas`` replicas of that speed."""
+    return replicas * 0.25 / (lat_fast_ms / 1e3), lat_slow_ms * 25
+
+
+# replica children of runs (c) and (d): the most (d) scales to
+PLANE_CHILDREN = 2
 
 
 def _plane_serve(torch, tag: str, argv, rate: float, slo_ms: float,
@@ -2416,14 +2670,16 @@ def _plane_serve(torch, tag: str, argv, rate: float, slo_ms: float,
         "queries", "served", "slo_attainment", "mean_acc",
         "p50_latency_ms", "p99_latency_ms", "rate_qps", "slo_ms",
         "replicas", "placement", "per_replica_served", "slice_mode",
-        "serve_phase_builds", "kernel_launches", "init_seconds",
-        "warmup")})
+        "serve_phase_builds", "serve_phase_captures", "kernel_launches",
+        "init_seconds", "warmup")})
     if out["size"] != "full" or out["units"] != 28:
         fail(f"plane {tag}: did not serve full-width qwen2-1.5b")
     if out["queries"] != queries or out["served"] != queries:
         fail(f"plane {tag}: served {out['served']} of {out['queries']}")
-    if out["serve_phase_builds"] != 0:
-        fail(f"plane {tag}: built {out['serve_phase_builds']} kernels")
+    if out["serve_phase_builds"] != 0 \
+            or out.get("serve_phase_captures", 0) != 0:
+        fail(f"plane {tag}: built {out['serve_phase_builds']} kernels, "
+             f"captured {out.get('serve_phase_captures')} graphs")
     if out["rate_qps"] != round(rate, 1) \
             or out["slo_ms"] != round(slo_ms, 3):
         fail(f"plane {tag}: rate/SLO {out['rate_qps']}/{out['slo_ms']} "
@@ -2458,13 +2714,15 @@ def frame_costs(vocab: int, reps: int = 5):
             "max_frame_bytes": ipc.MAX_FRAME}
 
 
-def plane_children(torch, rate: float, slo_ms: float):
+def plane_children(torch, rate: float, slo_ms: float, wire):
     """(c): two replica children over socketpairs, each building
     full-width qwen2-1.5b on the card; the coordinator's profile from the
-    same config. Every query served, each child warm (0 builds) with the
-    ported kernels launched in it, and PLANE_CHECKED completions held to
-    an in-process executor from the same seed at the subnet each reports.
-    Returns the children's launches."""
+    same config. Every query served, each child warm (0 builds, 0
+    captures) with the ported kernels launched in it, and PLANE_CHECKED
+    completions bit for bit an in-process executor's from the same seed
+    at the subnet each reports; ``wire`` is :func:`frame_costs`'s
+    measurement, reported beside them. Returns the children's
+    launches."""
     import asyncio
     import numpy as np
     from repro_torch import compat
@@ -2476,11 +2734,12 @@ def plane_children(torch, rate: float, slo_ms: float):
     prof = profiler.build_profile(cfg)
     rng = np.random.default_rng(PLANE_SEED)
     prompts = rng.integers(0, cfg.vocab_size,
-                           (PLANE_QUERIES, 16)).astype(np.int32)
+                           (WIRE_QUERIES, 16)).astype(np.int32)
 
     async def go():
         router = runtime.ClusterRouter(
-            prof, policies.SlackFit(), [1, 1], transport="proc",
+            prof, policies.SlackFit(), [1] * PLANE_CHILDREN,
+            transport="proc",
             execute="real", arch="qwen2-1.5b", seq_len=16,
             seed=PLANE_SEED, device="cuda", spawn_timeout=300.0,
             slo=slo_ms / 1e3)
@@ -2504,7 +2763,7 @@ def plane_children(torch, rate: float, slo_ms: float):
     children = [child_report(ch, proxy)
                 for ch, proxy in zip(router._chans, router.proxies)]
     served = sum(1 for r in recs if r.finish is not None and not r.dropped)
-    if len(recs) != PLANE_QUERIES or served != PLANE_QUERIES:
+    if len(recs) != WIRE_QUERIES or served != WIRE_QUERIES:
         fail(f"plane children: served {served} of {len(recs)}")
     card = torch.cuda.get_device_name(0)
     launches = {}
@@ -2512,9 +2771,10 @@ def plane_children(torch, rate: float, slo_ms: float):
         if c["device_name"] != card or not c["devices"]:
             fail(f"child {c['rid']}: hello reports {c['device_name']!r}, "
                  f"{c['devices']} cards, not the card {card!r}")
-        if c["kernel_builds"] != 0:
+        if c["kernel_builds"] != 0 or c["graph_captures"] != 0:
             fail(f"child {c['rid']}: {c['kernel_builds']} kernel "
-                 f"builds after warmup")
+                 f"builds and {c['graph_captures']} graph captures after "
+                 f"warmup")
         for k, v in (c["kernel_launches"] or {}).items():
             launches[k] = launches.get(k, 0) + v
     for name in ("subnet_rmsnorm", "flash_attention"):
@@ -2531,8 +2791,12 @@ def plane_children(torch, rate: float, slo_ms: float):
         if acc not in accs:
             fail(f"completion {i}: accuracy {acc} names no subnet")
         want = ex.prefill(accs.index(acc), prompts[i][None])[0]
-        errs.append(rel_err(np.asarray(pred, np.float32), want,
-                            f"child completion {i}"))
+        got = np.asarray(pred, np.float32)
+        errs.append(rel_err(got, want, f"child completion {i}"))
+        if not np.array_equal(got, want):
+            fail(f"child completion {i}: logits not bit for bit the "
+                 f"in-process executor's (max |diff| "
+                 f"{float(np.abs(got - want).max())})")
     # the same prefill in this process, the card no longer shared
     step_ms = {}
     for b in (1, 4):
@@ -2555,7 +2819,7 @@ def plane_children(torch, rate: float, slo_ms: float):
             c["completion_send_s"] / c["completion_frames"] * 1e3
             if c["completion_frames"] else None for c in children],
         inprocess_step_ms=step_ms, rel_err_vs_inprocess=errs,
-        tol="2e-2 of max|logit|", **frame_costs(cfg.vocab_size))
+        tol="2e-2 of max|logit|, and bit for bit", **wire)
     del ex
     _free(torch)
     return launches
@@ -2613,34 +2877,44 @@ def _plane_runs(torch, pacing):
         fail("plane replicas: sliced_matmul never launched")
     runs.append(out)
     _free(torch)
-    # (c) two child processes over socketpairs
+    # (c) two child processes over socketpairs, paced as (a) is but for
+    # the latency a query sees through the wire: its step, then the
+    # completion frame encoded by the child and decoded here
+    from repro_torch.configs import get_config
+    wire = frame_costs(get_config("qwen2-1.5b").vocab_size)
+    wire_ms = wire["encode_ms"] + wire["decode_ms"]
+    crate, cslo = plane_pacing(pacing[0] + wire_ms, pacing[1] + wire_ms,
+                               PLANE_CHILDREN)
+    say("plane-wire-pacing", rate_qps=crate, slo_ms=cslo, wire_ms=wire_ms)
     launches = [r["kernel_launches"] for r in runs]
-    launches.append(plane_children(torch, rate, slo_ms))
+    launches.append(plane_children(torch, crate, cslo, wire))
     # (d) over TCP, autoscaled
     from repro_torch.launch import serve
     out = serve.run(["--transport", "proc", "--listen", "127.0.0.1:0",
                      "--execute", "real", "--arch", "qwen2-1.5b",
                      "--procs", "1", "--autoscale", "--min-replicas", "1",
-                     "--max-replicas", "2", "--queries",
-                     str(PLANE_QUERIES), "--seq-len", "16", "--seed",
-                     str(PLANE_SEED), "--rate", repr(rate), "--slo-ms",
-                     repr(slo_ms)])
+                     "--max-replicas", str(PLANE_CHILDREN), "--queries",
+                     str(WIRE_QUERIES), "--seq-len", "16", "--seed",
+                     str(PLANE_SEED), "--rate", repr(crate), "--slo-ms",
+                     repr(cslo)])
     say("plane-tcp-autoscale", **{k: out.get(k) for k in (
         "queries", "served", "dropped", "slo_attainment", "mean_acc",
         "p50_latency_ms", "p99_latency_ms", "rate_qps", "slo_ms",
         "replicas_total", "replica_seconds", "scale_events",
         "handshake_rejects", "serve_phase_builds", "kernel_launches")},
         children=out["children"])
-    if out["queries"] != PLANE_QUERIES \
-            or out["served"] + out["dropped"] != PLANE_QUERIES:
+    if out["queries"] != WIRE_QUERIES \
+            or out["served"] + out["dropped"] != WIRE_QUERIES:
         fail(f"plane tcp: {out['served']} served + {out['dropped']} "
              f"dropped of {out['queries']}")
     for c in out["children"]:
-        if c["pid"] is not None and c["kernel_builds"] != 0:
+        if c["pid"] is not None and (c["kernel_builds"] != 0
+                                     or c["graph_captures"] != 0):
             fail(f"plane tcp: child {c['rid']} reports "
-                 f"{c['kernel_builds']} builds after warmup")
-    if out["rate_qps"] != round(rate, 1) \
-            or out["slo_ms"] != round(slo_ms, 3):
+                 f"{c['kernel_builds']} builds and {c['graph_captures']} "
+                 f"captures after warmup")
+    if out["rate_qps"] != round(crate, 1) \
+            or out["slo_ms"] != round(cslo, 3):
         fail("plane tcp: the rate and SLO were not echoed back")
     launches.append(out["kernel_launches"])
     # (e) sim on the profile measured on the card: 4 replicas of 8
@@ -2922,8 +3196,9 @@ def train_functions(torch):
         rows[name] = dict(
             max_abs_err=max(errs),
             rel_err=max(_rel(torch, g, w) for g, w in zip(got, want)),
-            backward_device_ms=device_ms(torch, backward(outs)),
-            plain_backward_device_ms=device_ms(torch, backward(want_outs)))
+            backward_device_ms=device_ms(torch, backward(outs), n=10),
+            plain_backward_device_ms=device_ms(torch, backward(want_outs),
+                                               n=10))
 
     sid = i32(7)
     gamma = (1 + 0.1 * torch.randn((18, 1536), generator=gen, device="cuda")
@@ -3199,7 +3474,7 @@ def phase_conv(torch, card):
                 torch.cuda.synchronize()
                 walls.append((time.perf_counter() - t1) * 1e3)
             wall = float(np.median(walls))
-            dev_ms = device_ms(torch, walk, n=2)
+            dev_ms = device_ms(torch, walk, n=1)
             lat = profiler.model_latency(profiler.RTX2080TI,
                                          subnet_flops(cfg, sub),
                                          subnet_weight_bytes(cfg, sub),
@@ -3849,6 +4124,10 @@ def main(argv) -> int:
     if "--dist" in argv:        # phase 15 alone, after the build
         timed("dist", phase_dist, torch, card)
         return 0
+    if "--graphs" in argv:      # phase 5b alone, after the build
+        timed("graphs", phase_graphs, torch, card,
+              [a for a in argv if not a.startswith("--")])
+        return 0
     kernels = timed("kernels", phase_kernels, torch, card)
     if "--quick" in argv:
         return 0
@@ -3856,6 +4135,7 @@ def main(argv) -> int:
     path_launches = [serve_launches,
                      timed("decode", phase_decode, torch),
                      timed("switch", phase_switch, torch)]
+    path_launches += timed("graphs", phase_graphs, torch, card)
     timed("trace", phase_trace, torch)
     timed("reference", phase_reference, torch)
     path_launches += timed("configs", phase_configs, torch, card)

@@ -16,9 +16,12 @@ and a call whose device does not match it raises.
 
 The build counter is the torch twin of ``repro.compat.CompileCounter``:
 it counts every ``nvcc`` compile (read at the edges of a counted block),
-so a serving run can show that it built nothing after warmup. The launch
-counter counts kernel launches per kernel name, so a run can show that
-its main path went through the kernels.
+so a serving run can show that it built nothing after warmup. The capture
+counter counts CUDA-graph captures the same way (the executor's twin of
+the reference's AOT compiles). The launch counter counts kernel launches
+per kernel name, so a run can show that its main path went through the
+kernels; launches noted while a graph is captured go to a
+:class:`LaunchRecorder` instead, and each replay of the graph adds them.
 
 :func:`child_env` is the environment of a replica child process.
 """
@@ -208,11 +211,74 @@ class BuildCounter:
         self.count = builds() - self._start
 
 
+_capture_events = 0
+_recording = threading.local()
+
+
+def note_capture(n: int = 1) -> None:
+    """Record ``n`` CUDA-graph captures."""
+    global _capture_events
+    with _counter_lock:
+        _capture_events += n
+
+
+def captures() -> int:
+    """CUDA-graph captures made so far in this process."""
+    return _capture_events
+
+
+class CaptureCounter:
+    """``with CaptureCounter() as cc: ...; cc.count`` — CUDA-graph captures
+    during the block (the capture twin of :class:`BuildCounter`)."""
+
+    def __init__(self):
+        self._start = 0
+        self.count = 0
+
+    def __enter__(self) -> "CaptureCounter":
+        self._start = captures()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.count = captures() - self._start
+
+
+class LaunchRecorder:
+    """``with LaunchRecorder() as rec: <capture>`` — the launches this
+    thread notes inside the block go to ``rec.counts``, not to the
+    process counts: a captured kernel is recorded, not launched. Each
+    replay of the graph then adds them (:func:`add_launches`)."""
+
+    def __init__(self):
+        self.counts: Counter = Counter()
+
+    def __enter__(self) -> "LaunchRecorder":
+        if getattr(_recording, "counts", None) is not None:
+            raise RuntimeError("LaunchRecorder blocks do not nest")
+        _recording.counts = self.counts
+        return self
+
+    def __exit__(self, *exc) -> None:
+        _recording.counts = None
+
+
 def note_launch(name: str) -> None:
     """Count one launch of kernel ``name`` (called by each wrapper right
-    where it launches, and nowhere else)."""
+    where it launches, and nowhere else); inside this thread's
+    :class:`LaunchRecorder` the launch is recorded there instead."""
+    rec = getattr(_recording, "counts", None)
+    if rec is not None:
+        rec[name] += 1
+        return
     with _counter_lock:
         _launches[name] += 1
+
+
+def add_launches(counts: Dict[str, int]) -> None:
+    """Count the launches ``counts`` (a replayed graph's, recorded at its
+    capture)."""
+    with _counter_lock:
+        _launches.update(counts)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -201,51 +201,65 @@ def embedding(ids, table):
     return settle_partial(out)
 
 
-def heads_sharded(q, k) -> bool:
-    """Whether DTensor attention inputs (B, H, S, d) shard their heads."""
-    return any(getattr(p, "dim", None) == 1 for t in (q, k)
-               for p in t.placements if not p.is_replicate())
-
-
-def heads_local(fn, q, k, v, **kw):
-    """``fn(q, k, v, **kw)``, attention over (B, H, S, d) DTensors, run on
-    each rank's own batch rows and heads, as tensor-parallel attention
-    runs: per mesh dim, batch-sharded inputs shard B, head-sharded ones
-    the kv heads (q's G heads a kv head go with it), and any other dim is
-    replicated. DTensor's batched product has no rule for a batch that
-    flattens two sharded dims (B over data and heads over model). 0-d
-    DTensor arguments are read locally; the output comes back with q's
-    layout."""
+def heads_local(fn, *args, heads: bool = True, whole=None, **kw):
+    """``fn(*args, **kw, **whole)`` run on each rank's own batch rows and,
+    with ``heads``, its own heads, as tensor-parallel attention runs. The
+    tensors of ``args`` and ``kw`` lead with the batch (dim 0) and the
+    heads (dim 1): attention's (B, H, S, d) inputs, where q's G heads a kv
+    head go with it, or the recurrent insides of an SSM block. Per mesh
+    dim they are sharded on the batch where an input is and the batch
+    divides, else on the heads likewise (with ``heads``), else replicated:
+    a head_dim-sharded cache, a sequence-sharded input or a partial sum is
+    gathered. The tensors of ``whole`` (weights) and 0-d ones are read
+    whole. Each tensor ``fn`` returns leads the same way and comes back as
+    a DTensor laid out alike. DTensor's batched product has no rule for a
+    batch that flattens two sharded dims (B over data and heads over
+    model), nor for the SSM scans' strided shards. On plain tensors: the
+    call itself."""
+    whole = whole or {}
+    lead = [t for t in list(args) + list(kw.values()) if is_dtensor(t)
+            and t.dim() > 0]
+    if not lead:
+        return fn(*args, **kw, **whole)
     import torch
     from torch.distributed.tensor import DTensor
     from torch.distributed.tensor import Replicate, Shard
-    mesh = q.device_mesh
-    B, Hkv = k.shape[0], k.shape[1]
-    placements = []
+    mesh = lead[0].device_mesh
+    B = lead[0].shape[0]
+    H = min(t.shape[1] for t in lead if t.dim() > 1)
+    placements, split = [], [1, 1]
     for i in range(mesh.ndim):
         n = mesh.size(i)
-        dims = {getattr(t.placements[i], "dim", None) for t in (q, k)}
-        if 0 in dims and B % n == 0:
+        dims = {getattr(t.placements[i], "dim", None) for t in lead}
+        if 0 in dims and B % (split[0] * n) == 0:
             placements.append(Shard(0))
-        elif 1 in dims and Hkv % n == 0:
+            split[0] *= n
+        elif heads and 1 in dims and H % (split[1] * n) == 0:
             placements.append(Shard(1))
+            split[1] *= n
         else:
             placements.append(Replicate())
 
-    def local(t):
+    def local(t, pl):
         if not is_dtensor(t):
             return t
-        if t.dim() == 0:
-            return t.redistribute(mesh, [Replicate()] * mesh.ndim).to_local()
-        return t.redistribute(mesh, placements).to_local()
+        if t.dim() == 0 or pl is None:
+            pl = [Replicate()] * mesh.ndim
+        return t.redistribute(mesh, pl).to_local()
 
-    out = fn(local(q), local(k), local(v),
-             **{key: local(val) for key, val in kw.items()})
-    shape = tuple(q.shape[:-1]) + (v.shape[-1],)
-    return DTensor.from_local(out.contiguous(), mesh, placements,
-                              run_check=False, shape=torch.Size(shape),
-                              stride=contiguous_stride(shape))
+    def back(t):
+        shape = list(t.shape)
+        for d, k in enumerate(split[:t.dim()]):
+            shape[d] *= k
+        return DTensor.from_local(t.contiguous(), mesh, placements,
+                                  run_check=False, shape=torch.Size(shape),
+                                  stride=contiguous_stride(shape))
 
+    out = fn(*(local(t, placements) for t in args),
+             **{key: local(t, placements) for key, t in kw.items()},
+             **{key: local(t, None) for key, t in whole.items()})
+    return tuple(back(t) for t in out) if isinstance(out, tuple) \
+        else back(out)
 
 
 def expert_matmul(x, w):

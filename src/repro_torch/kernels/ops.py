@@ -17,8 +17,7 @@ from __future__ import annotations
 
 from functools import partial
 
-from repro_torch.distributed.placement import (heads_local, heads_sharded,
-                                              is_dtensor)
+from repro_torch.distributed.placement import heads_local, is_dtensor
 from repro_torch.kernels import autograd as ag
 from repro_torch.kernels import ref
 from repro_torch.kernels import decode_attention as _decode
@@ -158,10 +157,10 @@ def model_flash_attention(q, k, v, *, causal=True, window=0, q_offset=0,
     The kernel does not take ``q_offset``/``scale``. On CPU tensors a call
     using them takes the plain path (the rule of
     ``repro/kernels/ops.py:173``); on any other device it raises, since the
-    device alone decides between kernel and plain version. DTensors whose
-    heads are sharded (the dry-run) run on each rank's own heads
+    device alone decides between kernel and plain version. DTensors (the
+    dry-run) run on each rank's own batch rows and heads
     (``distributed.placement.heads_local``)."""
-    if is_dtensor(q) and heads_sharded(q, k):
+    if is_dtensor(q):
         return heads_local(partial(
             model_flash_attention, causal=causal, window=window,
             q_offset=q_offset, q_block=q_block, kv_block=kv_block,
@@ -184,8 +183,9 @@ def model_flash_attention(q, k, v, *, causal=True, window=0, q_offset=0,
 
 def model_decode_attention(q, k_cache, v_cache, *, index, window=0,
                            kv_block=512):
-    """Single-token cached decode for model decode steps."""
-    if is_dtensor(q) and heads_sharded(q, k_cache):
+    """Single-token cached decode for model decode steps; DTensors as
+    :func:`model_flash_attention` takes them."""
+    if is_dtensor(q):
         return heads_local(partial(model_decode_attention, window=window,
                                    kv_block=kv_block),
                            q, k_cache, v_cache, index=index)

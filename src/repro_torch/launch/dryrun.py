@@ -41,7 +41,8 @@ decode step updates the cache in place, so the cache keeps its
 placements with no constraint (the reference's ``cache_constraints``).
 Records land in ``results/dryrun_torch/<arch>__<shape>__<mesh>.json``. A
 cell that cannot run (an op with no DTensor sharding strategy, say) is a
-sharding bug by definition: it fails loudly and the run exits non-zero.
+sharding bug by definition: it fails loudly, writes a ``failed`` record
+with the error, and the run exits non-zero.
 """
 from __future__ import annotations
 
@@ -336,6 +337,14 @@ def _save(rec: dict) -> None:
         json.dump(rec, f, indent=1, default=str)
 
 
+def _done(path: str) -> bool:
+    """Whether a record at ``path`` holds a cell that ran or was skipped."""
+    if not os.path.exists(path):
+        return False
+    with open(path) as f:
+        return json.load(f).get("status") != "failed"
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None)
@@ -360,7 +369,7 @@ def main(argv=None):
             for mesh_kind in meshes:
                 out = os.path.join(
                     RESULTS_DIR, f"{arch}__{shape}__{mesh_kind}.json")
-                if args.skip_done and os.path.exists(out):
+                if args.skip_done and _done(out):
                     continue
                 tag = f"{arch} x {shape} x {mesh_kind}"
                 try:
@@ -378,6 +387,8 @@ def main(argv=None):
                               flush=True)
                 except Exception as e:  # noqa: BLE001 - report and continue
                     failures.append((tag, repr(e)))
+                    _save({"arch": arch, "shape": shape, "mesh": mesh_kind,
+                           "status": "failed", "error": repr(e)})
                     print(f"[FAIL] {tag}: {e!r}", flush=True)
                     traceback.print_exc()
     if failures:

@@ -120,7 +120,7 @@ def _serve_real(args, cfg, prof, pol, executor, arr, slo_s) -> Dict:
         return router
 
     launches0 = compat.launch_counts()
-    with compat.BuildCounter() as builds:
+    with compat.BuildCounter() as builds, compat.CaptureCounter() as caps:
         router = asyncio.run(go())
     launches = {k: v - launches0.get(k, 0)
                 for k, v in compat.launch_counts().items()}
@@ -143,6 +143,8 @@ def _serve_real(args, cfg, prof, pol, executor, arr, slo_s) -> Dict:
            # serve_phase_builds, its kernel builds while serving (0)
            "serve_phase_compiles": None,
            "serve_phase_builds": builds.count,
+           # and its CUDA-graph captures while serving (0)
+           "serve_phase_captures": caps.count,
            "kernel_launches": launches}
     if args.replicas > 1:
         out["placement"] = args.placement
@@ -263,7 +265,8 @@ def _serve_proc(args, cfg, prof, pol, arr, slo_s, rate,
 def child_report(ch, proxy) -> Dict:
     """One replica child as the coordinator last heard it: its hello
     (card, init seconds), spawn-to-hello seconds, and the counters of its
-    last ``stats`` or ``drained`` frame (builds after warmup, launches,
+    last ``stats`` or ``drained`` frame (builds and graph captures after
+    warmup, launches,
     completion frames and the seconds spent sending them, worker steps
     and their wall seconds)."""
     c = proxy.child_stats or {}
@@ -273,6 +276,7 @@ def child_report(ch, proxy) -> Dict:
             "init_s": ch.hello.get("init_s"), "spawn_s": ch.spawn_s,
             "served": (c.get("stats") or {}).get("served"),
             "kernel_builds": c.get("kernel_builds"),
+            "graph_captures": c.get("graph_captures"),
             "kernel_launches": c.get("kernel_launches"),
             "completion_frames": c.get("completion_frames"),
             "completion_send_s": c.get("completion_send_s"),

@@ -21,12 +21,14 @@ TPU kernel in the JAX package, so it is plain PyTorch on every device.
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Dict
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.placement import heads_local
 from repro_torch.models.common import Dense, ones_table, pre_norm
 
 
@@ -92,21 +94,32 @@ def mamba_block_pending(p, cfg: ArchConfig, x, delta, ctrl, *,
     """:func:`mamba_block` with the previous block's residual add pending:
     returns ``(s, y)``, ``s = x + delta`` made by the pre-norm and ``y``
     this block's output in x's type."""
-    Bsz, S, d = x.shape
+    d_in, N = _dims(cfg)[0], cfg.ssm_state
+    s, h = pre_norm(p, cfg, x, delta, ctrl)
+    z, xc, B_, C_, dt = _split_proj(cfg, h @ p["w_in"])
+    xBC = _causal_conv(torch.cat([xc, B_, C_], -1), p["conv_w"], p["conv_b"])
+    xc, B_, C_ = torch.split(xBC, [d_in, N, N], dim=-1)
+    # the scan on each rank's own batch rows
+    Y = heads_local(partial(_ssd, cfg), xc, B_, C_, dt, heads=False,
+                    whole={k: p[k] for k in ("A_log", "D", "dt_bias")})
+    return s, _gated_out(p, cfg, Y.to(x.dtype), z).to(s.dtype)
+
+
+def _ssd(cfg: ArchConfig, xc, B_, C_, dt, *, A_log, D, dt_bias):
+    """The chunked SSD scan of the conv's outputs ``xc`` (B, S, d_in),
+    ``B_``, ``C_`` (B, S, N) and the step pre-activations ``dt`` (B, S,
+    H): the (B, S, d_in) fp32 output before its gate."""
+    Bsz, S, _ = xc.shape
     d_in, H, _ = _dims(cfg)
     N, P = cfg.ssm_state, cfg.ssm_head_dim
     Q = min(cfg.ssm_chunk, S)
     while S % Q:
         Q -= 1
     nC = S // Q
+    dev = xc.device
 
-    s, h = pre_norm(p, cfg, x, delta, ctrl)
-    z, xc, B_, C_, dt = _split_proj(cfg, h @ p["w_in"])
-    xBC = _causal_conv(torch.cat([xc, B_, C_], -1), p["conv_w"], p["conv_b"])
-    xc, B_, C_ = torch.split(xBC, [d_in, N, N], dim=-1)
-
-    dt = F.softplus(dt.float() + p["dt_bias"])                        # (B,S,H)
-    A = -torch.exp(p["A_log"])                                        # (H,)
+    dt = F.softplus(dt.float() + dt_bias)                             # (B,S,H)
+    A = -torch.exp(A_log)                                             # (H,)
     dA = dt * A                                                       # < 0
 
     Bc = B_.reshape(Bsz, nC, Q, N).float()
@@ -117,12 +130,12 @@ def mamba_block_pending(p, cfg: ArchConfig, x, delta, ctrl, *,
 
     # --- intra-chunk (quadratic within a chunk only) ---
     CB = torch.einsum("bcqn,bckn->bcqk", Cc, Bc)
-    causal = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+    causal = torch.ones((Q, Q), dtype=torch.bool, device=dev).tril()
     # the exponent is masked before exp (non-causal entries are exp of
     # large positive values), as in the reference
     diff = g[:, :, :, None, :] - g[:, :, None, :, :]                  # (B,c,Q,K,H)
     L = torch.exp(torch.where(causal[None, None, :, :, None], diff,
-                              torch.full((), -1e30, device=x.device)))
+                              torch.full((), -1e30, device=dev)))
     M = CB[..., None] * L * dtc[:, :, None, :, :]
     Y_intra = torch.einsum("bcqkh,bckhp->bcqhp", M, Xc)
 
@@ -131,7 +144,7 @@ def mamba_block_pending(p, cfg: ArchConfig, x, delta, ctrl, *,
     decay_states = torch.exp(g_last[:, :, None, :] - g) * dtc         # (B,c,Q,H)
     S_c = torch.einsum("bcqn,bcqh,bcqhp->bchnp", Bc, decay_states, Xc)
     decay = torch.exp(g_last)
-    prev = torch.zeros((Bsz, H, N, P), dtype=torch.float32, device=x.device)
+    prev = torch.zeros((Bsz, H, N, P), dtype=torch.float32, device=dev)
     states_prev = []
     for c in range(nC):
         states_prev.append(prev)
@@ -140,9 +153,8 @@ def mamba_block_pending(p, cfg: ArchConfig, x, delta, ctrl, *,
 
     Y_inter = torch.einsum("bcqn,bchnp,bcqh->bcqhp", Cc, states_prev,
                            torch.exp(g))
-    Y = Y_intra + Y_inter + p["D"][None, None, None, :, None] * Xc
-    Y = Y.reshape(Bsz, S, d_in).to(x.dtype)
-    return s, _gated_out(p, cfg, Y, z).to(s.dtype)
+    Y = Y_intra + Y_inter + D[None, None, None, :, None] * Xc
+    return Y.reshape(Bsz, S, d_in)
 
 
 def init_mamba_cache(cfg: ArchConfig, batch: int, dtype, device) -> Dict:

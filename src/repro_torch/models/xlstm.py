@@ -30,6 +30,7 @@ on every device.
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Dict
 
 import torch
@@ -37,7 +38,9 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import operators as ops
-from repro_torch.models.common import Dense, ones_table, pre_norm
+from repro_torch.distributed.placement import heads_local
+from repro_torch.models.common import (Dense, merge_heads, ones_table,
+                                       pre_norm, split_heads)
 
 NEG_INF = -1e30
 
@@ -127,6 +130,13 @@ def gla_flash(q, k, v, LF, b, *, block: int = 256):
     return torch.cat(out, 2)[:, :, :S]
 
 
+def _mlstm_heads(q, k, v, i_raw, f_raw):
+    """The mLSTM's scan over (B, H, S, d) heads, from its gates'
+    pre-activations (B, H, S): (B, H, S, dv) fp32."""
+    LF = torch.cumsum(F.logsigmoid(f_raw), dim=-1)              # log-forget
+    return gla_flash(q, k, v, LF, i_raw - LF)                   # i_j - LF_j
+
+
 def mlstm_block(p, cfg: ArchConfig, x, ctrl, *, slice_mode: str = "mask"):
     s, y = mlstm_block_pending(p, cfg, x, None, ctrl, slice_mode=slice_mode)
     return s + y
@@ -137,21 +147,19 @@ def mlstm_block_pending(p, cfg: ArchConfig, x, delta, ctrl, *,
     """:func:`mlstm_block` with the previous block's residual add pending:
     returns ``(s, y)``, ``s = x + delta`` and ``y`` this block's output in
     x's type."""
-    B, S, d = x.shape
     d_in, H, d_qk = _mlstm_dims(cfg)
     s, h = pre_norm(p, cfg, x, delta, ctrl)
     x_in, z = torch.chunk(h @ p["w_up"], 2, dim=-1)             # (B,S,d_in)
-    q = (x_in @ p["wq"]).reshape(B, S, H, d_qk // H).transpose(1, 2)
-    k = (x_in @ p["wk"]).reshape(B, S, H, d_qk // H).transpose(1, 2)
-    v = x_in.reshape(B, S, H, d_in // H).transpose(1, 2)
+    q = split_heads(x_in @ p["wq"], H, d_qk // H).transpose(1, 2)
+    k = split_heads(x_in @ p["wk"], H, d_qk // H).transpose(1, 2)
+    v = split_heads(x_in, H, d_in // H).transpose(1, 2)
 
     gates = x_in.float() @ p["w_if"] + p["b_if"]               # (B,S,2H)
     i_raw, f_raw = torch.chunk(gates, 2, dim=-1)
-    LF = torch.cumsum(F.logsigmoid(f_raw), dim=1)               # (B,S,H)
-    b = (i_raw - LF).transpose(1, 2)                            # i_j - LF_j
-
-    o = gla_flash(q, k, v, LF.transpose(1, 2), b)               # (B,H,S,dv)
-    o = o.transpose(1, 2).reshape(B, S, d_in)
+    # the gates and the scan on each rank's own batch rows and heads
+    o = heads_local(_mlstm_heads, q, k, v, i_raw.transpose(1, 2),
+                    f_raw.transpose(1, 2))                      # (B,H,S,dv)
+    o = merge_heads(o.transpose(1, 2))
     o = _head_norm(o, p["head_norm"], cfg.norm_eps).to(x.dtype)
     y = (o * F.silu(z)) @ p["w_out"]
     return s, y.to(s.dtype)
@@ -176,33 +184,43 @@ def mlstm_decode(p, cfg: ArchConfig, x, ctrl, cache, index):
 def mlstm_decode_pending(p, cfg: ArchConfig, x, delta, ctrl, cache, index):
     """:func:`mlstm_decode` with the previous block's residual add pending:
     returns ``(s, y)`` and updates ``cache`` in place."""
-    B = x.shape[0]
     d_in, H, d_qk = _mlstm_dims(cfg)
     s, h = pre_norm(p, cfg, x, delta, ctrl)
     x_in, z = torch.chunk((h @ p["w_up"])[:, 0], 2, dim=-1)
-    q = ((x_in @ p["wq"]).reshape(B, H, d_qk // H).float()
-         * ((d_qk // H) ** -0.5))
-    k = (x_in @ p["wk"]).reshape(B, H, d_qk // H).float()
-    v = x_in.reshape(B, H, d_in // H).float()
+    q = split_heads(x_in @ p["wq"], H, d_qk // H)
+    k = split_heads(x_in @ p["wk"], H, d_qk // H)
+    v = split_heads(x_in, H, d_in // H)
     gates = x_in.float() @ p["w_if"] + p["b_if"]
     i_raw, f_raw = torch.chunk(gates, 2, dim=-1)                # (B,H)
-    lf = F.logsigmoid(f_raw)
-    m_new = torch.maximum(cache["m"] + lf, i_raw)
-    fprime = torch.exp(cache["m"] + lf - m_new)
-    iprime = torch.exp(i_raw - m_new)
-    C = (cache["C"] * fprime[..., None, None]
-         + iprime[..., None, None] * k[..., :, None] * v[..., None, :])
-    nvec = cache["n"] * fprime[..., None] + iprime[..., None] * k
-    num = torch.einsum("bhd,bhdv->bhv", q, C)
-    den = torch.maximum(torch.einsum("bhd,bhd->bh", q, nvec).abs(),
-                        torch.exp(-m_new))
-    o = (num / den[..., None]).reshape(B, d_in)
+    # the recurrence on each rank's own batch rows and heads
+    o, C, nvec, m_new = heads_local(_mlstm_step, q, k, v, i_raw, f_raw,
+                                    cache["C"], cache["n"], cache["m"])
+    o = merge_heads(o)
     o = _head_norm(o, p["head_norm"], cfg.norm_eps).to(x.dtype)
     y = (o * F.silu(z))[:, None] @ p["w_out"]
     cache["C"].copy_(C)
     cache["n"].copy_(nvec)
     cache["m"].copy_(m_new)
     return s, y.to(s.dtype)
+
+
+def _mlstm_step(q, k, v, i_raw, f_raw, C, n, m):
+    """One step of the mLSTM recurrence over (B, H, d) heads and gates
+    (B, H), from the state ``(C, n, m)``: the heads' fp32 output (B, H, dv)
+    and the new state."""
+    q = q.float() * (q.shape[-1] ** -0.5)
+    k, v = k.float(), v.float()
+    lf = F.logsigmoid(f_raw)
+    m_new = torch.maximum(m + lf, i_raw)
+    fprime = torch.exp(m + lf - m_new)
+    iprime = torch.exp(i_raw - m_new)
+    C = (C * fprime[..., None, None]
+         + iprime[..., None, None] * k[..., :, None] * v[..., None, :])
+    nvec = n * fprime[..., None] + iprime[..., None] * k
+    num = torch.einsum("bhd,bhdv->bhv", q, C)
+    den = torch.maximum(torch.einsum("bhd,bhd->bh", q, nvec).abs(),
+                        torch.exp(-m_new))
+    return num / den[..., None], C, nvec, m_new
 
 
 # --------------------------------------------------------------------------
@@ -274,16 +292,32 @@ def slstm_block_pending(p, cfg: ArchConfig, x, delta, ctrl, *,
     """:func:`slstm_block` with the previous block's residual add pending:
     returns ``(s, y)``, ``s`` the residual after the recurrence's add and
     ``y`` the post-FFN's output in x's type."""
-    B, S, d = x.shape
     s, h = pre_norm(p, cfg, x, delta, ctrl)
     pre = h.float() @ p["w_x"]                                  # (B,S,4d)
-    zero = torch.zeros((B, d), dtype=torch.float32, device=x.device)
+    # the recurrence on each rank's own batch rows
+    hs = heads_local(partial(_slstm_scan, cfg=cfg), pre, heads=False,
+                     whole=dict(r=p["r"], b=p["b"]))
+    return _slstm_ffn(p, cfg, s, hs.to(x.dtype), ctrl)
+
+
+def _slstm_scan(pre, *, r, b, cfg: ArchConfig):
+    """The sLSTM cell over the sequence from a zero state: pre-activations
+    (B, S, 4d) to the hidden states (B, S, d), fp32."""
+    zero = torch.zeros((pre.shape[0], cfg.d_model), dtype=torch.float32,
+                       device=pre.device)
     state = (zero, zero, zero, torch.full_like(zero, NEG_INF))
     hs = []
-    for t in range(S):
-        state, ht = _slstm_cell(p, cfg, pre[:, t], state)
+    for t in range(pre.shape[1]):
+        state, ht = _slstm_cell({"r": r, "b": b}, cfg, pre[:, t], state)
         hs.append(ht)
-    return _slstm_ffn(p, cfg, s, torch.stack(hs, 1).to(x.dtype), ctrl)
+    return torch.stack(hs, 1)
+
+
+def _slstm_step(pre, c, n, h, m, *, r, b, cfg: ArchConfig):
+    """One sLSTM cell step from the state ``(c, n, h, m)``: the new state
+    and the hidden output, each (B, d)."""
+    state, hnew = _slstm_cell({"r": r, "b": b}, cfg, pre, (c, n, h, m))
+    return (*state, hnew)
 
 
 def init_slstm_cache(cfg: ArchConfig, batch: int, dtype, device) -> Dict:
@@ -303,8 +337,9 @@ def slstm_decode_pending(p, cfg: ArchConfig, x, delta, ctrl, cache, index):
     returns ``(s, y)`` and updates ``cache`` in place."""
     s, h = pre_norm(p, cfg, x, delta, ctrl)
     pre = (h.float() @ p["w_x"])[:, 0]
-    state = (cache["c"], cache["n"], cache["h"], cache["m"])
-    new, hnew = _slstm_cell(p, cfg, pre, state)
+    *new, hnew = heads_local(partial(_slstm_step, cfg=cfg), pre, cache["c"],
+                             cache["n"], cache["h"], cache["m"], heads=False,
+                             whole=dict(r=p["r"], b=p["b"]))
     for key, val in zip(("c", "n", "h", "m"), new):
         cache[key].copy_(val)
     return _slstm_ffn(p, cfg, s, hnew[:, None].to(x.dtype), ctrl)

@@ -56,9 +56,10 @@ def fmt_table(recs: List[Dict]) -> str:
             "|---|---|---|---|---|---|---|---|---|")
     rows = []
     for r in recs:
-        if r["status"] == "skipped":
-            rows.append(f"| {r['arch']} | {r['shape']} | — skipped: "
-                        f"{r['reason'].split(';')[0]} | | | | | | |")
+        if r["status"] != "ok":      # skipped, or failed with its error
+            why = r.get("reason") or r.get("error", "")
+            rows.append(f"| {r['arch']} | {r['shape']} | — {r['status']}: "
+                        f"{why.split(';')[0]} | | | | | | |")
             continue
         c = corrected(r)
         rows.append(

@@ -27,16 +27,43 @@
   the step once at its shape, which builds and loads the CUDA library at
   first use; the ``compiles`` counter counts entry builds and
   ``kernel_builds`` the kernel builds they caused.
-* **Warmup** — :meth:`SubnetExecutor.warmup` builds every bucket the
-  profile lets the policy choose, off the serving path, so no serving call
-  builds a kernel (``repro_torch.compat.BuildCounter`` shows it).
+* **CUDA graphs** — the twin of the reference's AOT executables
+  (``ExecutorConfig.use_graphs``, the twin of ``use_aot``). On the card an
+  entry captures one graph per distinct ``layer_gate`` pattern of the
+  Pareto set at build time: the gates are walked on the host, every other
+  control field is data, so one graph serves every subnet of that depth.
+  The step runs eagerly on the capture stream first (it builds the
+  kernels, sets their attributes and sizes ``sliced_matmul``'s scratch),
+  then is captured into one memory pool shared by the executor's graphs;
+  ``graph_captures`` counts them (``compat.CaptureCounter`` process-wide).
+  A call writes its tokens, lengths or decode index and its subnet's
+  control values into the entry's pinned host mirror, copies them in with
+  one transfer, replays, and copies the fp32 logits into a pinned host
+  buffer; it returns a copy. A decode graph is bound to its entry's own
+  cache: the caller's cache is copied in before the replay and back after
+  it, so ``decode_step`` still updates ``cache.state`` in place and any
+  cache of the bucket works without a capture. A replay calls no kernel
+  wrapper, so the launches noted while capturing are added at each
+  replay. Garbage that only the cycle collector frees is collected before
+  a capture and the collector is off during it, since freeing an earlier
+  executor's graphs inside a capture invalidates it. A failed capture or
+  replay raises; nothing drops back to eager.
+  ``use_graphs=False`` runs the step eagerly on the card, as asked. On a
+  CPU tensor the entry runs the same static buffers with the step called
+  in place of the replay (decided by the device, as the kernel tiers are).
+* **Warmup** — :meth:`SubnetExecutor.warmup` builds (and captures) every
+  bucket the profile lets the policy choose, off the serving path, so no
+  serving call builds a kernel or captures a graph
+  (``repro_torch.compat.BuildCounter`` and ``CaptureCounter`` show it).
 
-The decode cache is updated in place (the JAX executor donates it). The
-entry cache and its first-use builds are guarded by a lock: ``Router``
-workers are threads. Scheduling stays in ``serving/engine.py``.
+The entry cache, the builds and every step run under one lock: ``Router``
+workers are threads, an entry's static buffers serve one call at a time,
+and the graphs share one memory pool and ``sliced_matmul``'s scratch.
+Scheduling stays in ``serving/engine.py``.
 """
 from __future__ import annotations
 
+import gc
 import threading
 import time
 from collections import OrderedDict
@@ -85,6 +112,7 @@ class ExecutorConfig:
     seq_buckets: Tuple[int, ...] = (16, 32, 64, 128, 256)
     max_entries: int = 32               # LRU cap on warmed entries
     slice_mode: str = "mask"            # WeightSlice: "mask" or "switch"
+    use_graphs: bool = True             # one CUDA graph per entry and depth
 
     def __post_init__(self):
         for name in ("batch_buckets", "seq_buckets"):
@@ -95,6 +123,62 @@ class ExecutorConfig:
         if self.max_entries < 1:
             raise ValueError("max_entries must be >= 1")
         ops.check_slice_mode(self.slice_mode)
+
+
+def _leaves(tree) -> List[torch.Tensor]:
+    """The tensors of a cache tree in a fixed order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _leaves(v)]
+    if tree is None:
+        return []
+    raise TypeError(f"cache leaf of type {type(tree).__name__}")
+
+
+class _Entry:
+    """One warmed ``(kind, Bb, Sb)`` step on static buffers.
+
+    ``args`` is one int32 buffer on the device that the step reads: the
+    tokens, then the lengths (prefill) or the decode index, then the
+    device fields of the control tuple. ``host`` is its host mirror
+    (pinned on the card), so a call's inputs cross in one copy; the fp32
+    logits come back through ``out_host``. A decode entry holds its own
+    cache ``state``. ``replays`` maps each layer-gate pattern to the
+    function that runs the step on these buffers: the replay of its graph
+    on the card, the step itself on the CPU. With ``use_graphs=False`` it
+    is None, and a call runs the step with its subnet's own control and
+    the caller's cache."""
+
+    def __init__(self, ex: "SubnetExecutor", kind: str, Bb: int, Sb: int):
+        dev, cuda = ex.device, ex.device.type == "cuda"
+        self.kind, self.Bb, self.Sb = kind, Bb, Sb
+        S = Sb if kind == "prefill" else 1
+        n_aux = Bb if kind == "prefill" else 1
+        n = Bb * S + n_aux + len(ex.fields)
+        self.args = torch.zeros(n, dtype=torch.int32, device=dev)
+        self.host = torch.zeros(n, dtype=torch.int32, pin_memory=cuda)
+        self.out_host = torch.empty((Bb, ex.cfg.vocab_size),
+                                    dtype=torch.float32, pin_memory=cuda)
+        self.tokens = self.args[:Bb * S].view(Bb, S)
+        aux = self.args[Bb * S:Bb * S + n_aux]
+        self.aux = aux if kind == "prefill" else aux[0]
+        ctrl = self.args[Bb * S + n_aux:]
+        self.ctrl = {k: ctrl[j] for j, k in enumerate(ex.fields)}
+        host = self.host.numpy()
+        self.host_tokens = host[:Bb * S].reshape(Bb, S)
+        self.host_aux = host[Bb * S:Bb * S + n_aux]
+        self.host_ctrl = host[Bb * S + n_aux:]
+        self.state = (lm.init_cache(ex.cfg, Bb, Sb,
+                                    dtype=ex.params["embed"].dtype,
+                                    device=dev)
+                      if kind == "decode" else None)
+        self.replays: Optional[Dict[bytes, Callable]] = None
+        # the last copy out of ``host``: the mirror is written again only
+        # once it has crossed
+        self.copied = torch.cuda.Event() if cuda else None
 
 
 @dataclass
@@ -122,14 +206,28 @@ class SubnetExecutor:
         self.device = params["embed"].device
         self.points: List[ParetoPoint] = list(points or pareto_subnets(cfg))
         # the switch-mode width of wo is derived here, once per subnet
-        self.ctrls = [ops.device_control(
-            with_wo_width(cfg, sn.make_control(cfg, p.sub)), self.device)
-            for p in self.points]
+        host = [with_wo_width(cfg, sn.make_control(cfg, p.sub))
+                for p in self.points]
+        self.ctrls = [ops.device_control(c, self.device) for c in host]
+        # each subnet's device fields as one host int32 row: a call copies
+        # its subnet's row into the entry's static control
+        self.fields = tuple(k for k in host[0] if k not in ops.HOST_FIELDS)
+        self.rows = np.array([[c[k] for k in self.fields] for c in host],
+                             dtype=np.int32)
+        # one graph an entry for each distinct depth pattern, captured
+        # with the first subnet that has it
+        self.patterns: Dict[bytes, int] = {}
+        for i, c in enumerate(self.ctrls):
+            self.patterns.setdefault(c["layer_gate"].tobytes(), i)
         self.xcfg = exec_cfg or ExecutorConfig()
-        self._cache: "OrderedDict[Tuple, Callable]" = OrderedDict()
+        self._cache: "OrderedDict[Tuple, _Entry]" = OrderedDict()
         self._lock = threading.RLock()
         self._counters = {"hits": 0, "misses": 0, "compiles": 0,
-                          "evictions": 0, "kernel_builds": 0}
+                          "evictions": 0, "kernel_builds": 0,
+                          "graph_captures": 0, "capture_seconds": 0.0,
+                          "graph_pool_bytes": 0}
+        self._stream = None             # the capture stream (card only)
+        self._pool = None               # the graphs' shared memory pool
 
     # -- introspection ---------------------------------------------------
 
@@ -180,8 +278,8 @@ class SubnetExecutor:
             padded = np.zeros((Bb, Sb), np.int32)
             padded[:B, :S] = tokens
             tokens = padded
-        fn = self._get("prefill", Bb, Sb)
-        return fn(subnet_idx, tokens, lens)[:B]
+        return self._run(self._get("prefill", Bb, Sb), subnet_idx, B,
+                         tokens, lens)
 
     def init_cache(self, batch: int, seq_cap: int) -> DecodeCache:
         """Fresh decode cache at the bucketed (batch, capacity)."""
@@ -207,9 +305,9 @@ class SubnetExecutor:
         if B < cache.batch:
             tokens = np.concatenate(
                 [tokens, np.zeros((cache.batch - B, 1), np.int32)])
-        fn = self._get("decode", cache.batch, cache.seq_cap)
-        logits = fn(subnet_idx, tokens, cache.state, int(index))
-        return logits[:B], DecodeCache(cache.batch, cache.seq_cap, cache.state)
+        logits = self._run(self._get("decode", cache.batch, cache.seq_cap),
+                           subnet_idx, B, tokens, int(index), cache.state)
+        return logits, DecodeCache(cache.batch, cache.seq_cap, cache.state)
 
     # -- warmup ----------------------------------------------------------
 
@@ -239,10 +337,10 @@ class SubnetExecutor:
         for kind, b, s in lattice:
             self._get(kind, b, s)
         return {"n_buckets": float(len(lattice)),
-                "n_compiled": float(self._counters["compiles"]
-                                    - before["compiles"]),
-                "kernel_builds": float(self._counters["kernel_builds"]
-                                       - before["kernel_builds"]),
+                **{k: float(self._counters[c] - before[c]) for k, c in (
+                    ("n_compiled", "compiles"),
+                    ("kernel_builds", "kernel_builds"),
+                    ("graph_captures", "graph_captures"))},
                 "seconds": time.perf_counter() - t0}
 
     # -- serving-stack adapters ------------------------------------------
@@ -285,60 +383,167 @@ class SubnetExecutor:
 
     # -- entry cache -----------------------------------------------------
 
-    def _get(self, kind: str, Bb: int, Sb: int) -> Callable:
+    def _get(self, kind: str, Bb: int, Sb: int) -> _Entry:
         key = (kind, Bb, Sb, compat.device_tier(self.device))
         with self._lock:
-            fn = self._cache.get(key)
-            if fn is not None:
+            entry = self._cache.get(key)
+            if entry is not None:
                 self._cache.move_to_end(key)
                 self._counters["hits"] += 1
-                return fn
+                return entry
             self._counters["misses"] += 1
             with compat.BuildCounter() as bc:
-                fn = self._build(kind, Bb, Sb)
-            self._cache[key] = fn
+                entry = self._build(kind, Bb, Sb)
+            self._cache[key] = entry
             self._counters["compiles"] += 1
             self._counters["kernel_builds"] += bc.count
             while len(self._cache) > self.xcfg.max_entries:
                 self._cache.popitem(last=False)
                 self._counters["evictions"] += 1
-            return fn
+            return entry
 
-    def _build(self, kind: str, Bb: int, Sb: int) -> Callable:
-        cfg, params, dev = self.cfg, self.params, self.device
-        slice_mode = self.xcfg.slice_mode
-        if kind == "prefill":
-            @torch.no_grad()
-            def fn(subnet_idx, tokens, lengths):
-                ctrl = self._ctrl(subnet_idx)
-                tok = torch.tensor(tokens, device=dev)
-                lens = torch.tensor(lengths, device=dev)
-                x = lm.hidden_states(params, cfg, {"tokens": tok}, ctrl,
-                                     slice_mode=slice_mode)
-                # causal: the pad never influences positions < length
-                # (except through MoE capacity), so the state at length-1
-                # is the unpadded answer
-                pos = torch.clamp(lens.long() - 1, 0, tok.shape[1] - 1)
-                last = x[torch.arange(x.shape[0], device=dev), pos]
-                logits = lm.head_logits(params, cfg, last, ctrl)
-                return logits.float().cpu().numpy()
+    def _step(self, e: _Entry, ctrl: Dict, state=None) -> torch.Tensor:
+        """The step of ``e`` on its static inputs with ``ctrl`` (and the
+        decode ``state``): fp32 logits (Bb, vocab)."""
+        cfg, params = self.cfg, self.params
+        with torch.no_grad():
+            if e.kind == "decode":
+                logits, _ = lm.decode_step(params, cfg, e.tokens, ctrl, state,
+                                           e.aux,
+                                           slice_mode=self.xcfg.slice_mode)
+                return logits[:, 0].float()
+            x = lm.hidden_states(params, cfg, {"tokens": e.tokens}, ctrl,
+                                 slice_mode=self.xcfg.slice_mode)
+            # causal: the pad never influences positions < length (except
+            # through MoE capacity), so the state at length-1 is the
+            # unpadded answer
+            pos = torch.clamp(e.aux.long() - 1, 0, e.Sb - 1)
+            last = x[torch.arange(e.Bb, device=x.device), pos]
+            return lm.head_logits(params, cfg, last, ctrl).float()
 
-            fn(0, np.zeros((Bb, Sb), np.int32), np.full((Bb,), Sb, np.int32))
-        elif kind == "decode":
-            @torch.no_grad()
-            def fn(subnet_idx, tokens, state, index):  # noqa: F811
-                ctrl = self._ctrl(subnet_idx)
-                tok = torch.tensor(tokens, device=dev)
-                idx = torch.full((), index, dtype=torch.int32, device=dev)
-                logits, _ = lm.decode_step(params, cfg, tok, ctrl, state,
-                                           idx, slice_mode=slice_mode)
-                return logits[:, 0].float().cpu().numpy()
+    def _load(self, e: _Entry, subnet_idx: int, tokens, aux) -> None:
+        """Write a call's inputs and its subnet's control values into the
+        host mirror and copy them to ``e.args`` in one transfer."""
+        if e.copied is not None:
+            e.copied.synchronize()
+        e.host_tokens[...] = tokens
+        e.host_aux[...] = aux
+        e.host_ctrl[...] = self.rows[subnet_idx]
+        e.args.copy_(e.host, non_blocking=True)
+        if e.copied is not None:
+            e.copied.record()
 
-            scratch = self.init_cache(Bb, Sb).state
-            fn(0, np.zeros((Bb, 1), np.int32), scratch, 0)
-        else:
+    def _run(self, e: _Entry, subnet_idx: int, B: int, tokens, aux,
+             state=None) -> np.ndarray:
+        """One call of entry ``e``: logits (B, vocab) float32, a copy."""
+        ctrl = self._ctrl(subnet_idx)
+        with self._lock:
+            self._load(e, subnet_idx, tokens, aux)
+            if e.replays is None:
+                out = self._step(e, ctrl, state)
+            else:
+                replay = e.replays[ctrl["layer_gate"].tobytes()]
+                if state is not None:
+                    torch._foreach_copy_(_leaves(e.state), _leaves(state))
+                out = replay()
+                if state is not None:
+                    torch._foreach_copy_(_leaves(state), _leaves(e.state))
+            e.out_host.copy_(out, non_blocking=True)
+            if self.device.type == "cuda":
+                torch.cuda.current_stream(self.device).synchronize()
+            return e.out_host.numpy()[:B].copy()
+
+    def _build(self, kind: str, Bb: int, Sb: int) -> _Entry:
+        if kind not in ("prefill", "decode"):
             raise ValueError(f"unknown step kind {kind!r}")
-        return fn
+        e = _Entry(self, kind, Bb, Sb)
+        if not self.xcfg.use_graphs:
+            # eager: run the step once at its shape (builds the kernels);
+            # each call then passes the caller's cache
+            self._load(e, 0, 0, Sb if kind == "prefill" else 0)
+            self._step(e, self.ctrls[0], e.state)
+            e.state = None
+        elif self.device.type == "cuda":
+            e.replays = self._capture(e)
+        else:
+            # the same static buffers, the step called in place of a replay
+            e.replays = {key: self._direct(e, i)
+                         for key, i in self.patterns.items()}
+        return e
+
+    def _static_ctrl(self, e: _Entry, subnet_idx: int) -> Dict:
+        """The entry's static control with subnet ``subnet_idx``'s gates."""
+        return dict(e.ctrl, layer_gate=self.ctrls[subnet_idx]["layer_gate"])
+
+    def _direct(self, e: _Entry, subnet_idx: int) -> Callable:
+        ctrl = self._static_ctrl(e, subnet_idx)
+        return lambda: self._step(e, ctrl, e.state)
+
+    def _capture(self, e: _Entry) -> Dict[bytes, Callable]:
+        """One CUDA graph of ``e``'s step for each depth pattern, captured
+        on the executor's stream into its shared pool; each pattern's
+        step runs eagerly on that stream first."""
+        dev = self.device
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(dev)
+            self._pool = torch.cuda.graph_pool_handle()
+        stream, replays = self._stream, {}
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            for i in self.patterns.values():
+                self._load(e, i, 0, e.Sb if e.kind == "prefill" else 0)
+                self._step(e, self._static_ctrl(e, i), e.state)
+        stream.synchronize()
+        leaves = [t.data_ptr() for t in _leaves(e.state)]
+        # garbage that only the cycle collector frees (an executor a served
+        # router held: its graphs, pool and pinned buffers) must not be
+        # freed inside a capture, which that invalidates: collect it now
+        # and keep the collector off until the entry's graphs are captured
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            for key, i in self.patterns.items():
+                replays[key] = self._capture_one(e, i, stream)
+        finally:
+            if collecting:
+                gc.enable()
+        if [t.data_ptr() for t in _leaves(e.state)] != leaves:
+            raise RuntimeError("the decode step replaced a cache leaf; a "
+                               "graph needs the cache updated in place")
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        return replays
+
+    def _capture_one(self, e: _Entry, subnet_idx: int, stream) -> Callable:
+        """Capture ``e``'s step with subnet ``subnet_idx``'s depth pattern
+        on ``stream``; returns its replay."""
+        dev = self.device
+        graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        # the capture empties the allocator's cache first; what the card
+        # then reserves more is the pool's
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_reserved(dev)
+        with compat.LaunchRecorder() as rec:
+            with torch.cuda.graph(graph, pool=self._pool, stream=stream,
+                                  capture_error_mode="thread_local"):
+                out = self._step(e, self._static_ctrl(e, subnet_idx), e.state)
+        compat.note_capture()
+        self._counters["graph_captures"] += 1
+        self._counters["capture_seconds"] += time.perf_counter() - t0
+        self._counters["graph_pool_bytes"] += (
+            torch.cuda.memory_reserved(dev) - held)
+        return _replayer(graph, out, dict(rec.counts))
+
+
+def _replayer(graph, out: torch.Tensor, launches: Dict[str, int]) -> Callable:
+    """Replay ``graph`` and count the launches it records; returns its
+    static output."""
+    def replay():
+        graph.replay()
+        compat.add_launches(launches)
+        return out
+    return replay
 
 
 def build_executor(cfg: ArchConfig, seed: int = 0, device=None,

@@ -32,8 +32,8 @@ Device pinning: the parent spawns this process under
 parent's visible cards, so the child's ``cuda`` is that card. Its
 ``hello`` frame reports the cards it sees (``None`` on the CPU) and the
 card's name; its ``stats`` and ``drained`` counters report the kernel
-builds made after warmup (0 when warm) and the kernel launches, so the
-no-build-after-warmup gate holds in every child.
+builds and CUDA-graph captures made after warmup (0 when warm) and the
+kernel launches, so the no-build-after-warmup gate holds in every child.
 
 A port of ``repro/serving/replica_proc.py``.
 
@@ -135,7 +135,8 @@ def build_router(spec: ReplicaSpec, rid: int,
 
 
 def _counters(router: Router, hb_errors: Optional[dict] = None,
-              builds0: int = 0, sends: Optional[dict] = None,
+              builds0: int = 0, captures0: int = 0,
+              sends: Optional[dict] = None,
               steps: Optional[dict] = None) -> dict:
     eng = router.engine
     steps = steps or {}
@@ -143,6 +144,7 @@ def _counters(router: Router, hb_errors: Optional[dict] = None,
         # kernel builds and launches since warmup ended (a warm child
         # reports 0 builds)
         "kernel_builds": compat.builds() - builds0,
+        "graph_captures": compat.captures() - captures0,
         "kernel_launches": compat.launch_counts(),
         "completion_frames": int((sends or {}).get("frames", 0)),
         "completion_send_s": float((sends or {}).get("seconds", 0.0)),
@@ -179,8 +181,9 @@ async def serve(stream: FrameStream,
     t0 = time.perf_counter()
     router = build_router(spec, rid, steps)
     init_s = time.perf_counter() - t0
-    # what serving adds from here on: builds (0 when warm) and launches
-    builds0 = compat.builds()
+    # what serving adds from here on: builds and captures (0 when warm)
+    # and launches
+    builds0, captures0 = compat.builds(), compat.captures()
     compat.reset_launch_counts()
     await router.start()
     await stream.send({"t": "hello", "rid": rid, "pid": os.getpid(),
@@ -230,7 +233,8 @@ async def serve(stream: FrameStream,
             elif t == "stats":
                 await stream.send({"t": "stats",
                                    "counters": _counters(router, hb_errors,
-                                                         builds0, sends,
+                                                         builds0, captures0,
+                                                         sends,
                                                          steps)})
             elif t == "drain":
                 await router.drain(float(frame.get("timeout", 10.0)))
@@ -240,7 +244,8 @@ async def serve(stream: FrameStream,
                                          return_exceptions=True)
                 await stream.send({"t": "drained",
                                    "counters": _counters(router, hb_errors,
-                                                         builds0, sends,
+                                                         builds0, captures0,
+                                                         sends,
                                                          steps)})
                 break
             # unknown kinds are ignored: additive protocol evolution

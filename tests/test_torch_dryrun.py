@@ -11,8 +11,9 @@ decode with int8 weights. For every cell that runs:
   with bytes > 0; the counted FLOPs are at least the analytic ones'
   model part.
 
-The cells the port cannot trace yet are the faults listed in
-``ROADMAP.md`` §3: each must still fail, loudly, with the op named there.
+A cell the port could not trace would be listed in ``KNOWN_FAULTS``
+(``ROADMAP.md`` §3) and must fail, loudly, with the op named there; none
+is.
 The launcher's record and ``roofline.aggregate`` are checked on a
 skipped production cell. Two subprocesses hold a fake group each.
 """
@@ -40,11 +41,9 @@ ARCHS = ("qwen2-1.5b", "mixtral-8x7b", "llama4-maverick-400b-a17b",
          "zamba2-2.7b", "xlstm-125m", "musicgen-medium", "qwen2-vl-7b")
 CELLS = (("train", False), ("prefill", False), ("decode", False),
          ("decode", True))
-# the cells that fail on DTensor's missing rules (ROADMAP.md section 3):
-# the mLSTM's forget gate takes an op with no sharding rule
-KNOWN_FAULTS = {("xlstm-125m", kind, int8): "log_sigmoid_forward"
-                for kind, int8 in (("train", False), ("prefill", False),
-                                   ("decode", False), ("decode", True))}
+# the cells that fail on DTensor's missing rules (ROADMAP.md section 3),
+# each with the op named there: none
+KNOWN_FAULTS = {}
 
 CHILD = textwrap.dedent("""
     import json, sys
@@ -159,3 +158,29 @@ def test_launcher_record_and_aggregate(tmp_path, monkeypatch):
     table = aggregate.fmt_table(recs)
     assert "skipped" in table and "| memory |" in table and "5.0 |" in table
     assert aggregate.pick_hillclimbs(recs)["worst_fraction"] == ok
+
+
+def test_a_cell_that_raises_writes_a_failed_record(tmp_path, monkeypatch):
+    """A cell that raises writes a ``failed`` record with its error, the
+    run exits non-zero, ``--skip-done`` runs it again, and ``aggregate``
+    tables it."""
+    from repro_torch.launch import dryrun
+    from repro_torch.roofline import aggregate
+    monkeypatch.setattr(dryrun, "RESULTS_DIR", str(tmp_path))
+
+    def boom(*args, **kw):
+        raise NotImplementedError("aten.bmm has no sharding strategy")
+
+    monkeypatch.setattr(dryrun, "run_cell", boom)
+    argv = ["--arch", "qwen2-1.5b", "--shape", "decode_32k", "--mesh",
+            "single"]
+    with pytest.raises(SystemExit, match="1 dry-run cells failed"):
+        dryrun.main(argv)
+    path = tmp_path / "qwen2-1.5b__decode_32k__single.json"
+    rec = json.loads(path.read_text())
+    assert rec["status"] == "failed" and "aten.bmm" in rec["error"]
+    assert not dryrun._done(str(path))
+    with pytest.raises(SystemExit):
+        dryrun.main(argv + ["--skip-done"])
+    table = aggregate.fmt_table(aggregate.load("single", str(tmp_path)))
+    assert "— failed: NotImplementedError" in table

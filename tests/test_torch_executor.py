@@ -27,6 +27,17 @@ TOL = dict(rtol=2e-4, atol=2e-4)      # same framework, other shapes
 XTOL = dict(rtol=2e-3, atol=2e-3)     # across frameworks
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for the many small ops: under the parallel
+    test workers each extra thread only adds contention."""
+    import torch
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _executor(exec_cfg, cfg=None):
     jcfg = cfg or tiny_dense()
     jparams = jlm.init_model(jax.random.PRNGKey(0), jcfg)

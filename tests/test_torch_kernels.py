@@ -27,6 +27,17 @@ from repro_torch.kernels.dispatch import DISPATCHER, KernelDispatcher
 DTYPES = ["float32", "bfloat16"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for the many small ops: under the parallel
+    test workers each extra thread only adds contention."""
+    import torch
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _tol(dtype):
     return dict(rtol=2e-2, atol=2e-2) if dtype == "bfloat16" \
         else dict(rtol=2e-3, atol=2e-3)

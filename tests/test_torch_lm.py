@@ -30,6 +30,17 @@ CFGS = {"tiny_dense": tiny_dense,
             norm="layernorm", rotary_pct=0.25, qkv_bias=True)}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for the many small ops: under the parallel
+    test workers each extra thread only adds contention."""
+    import torch
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def port_cfg(jcfg):
     """The port's ArchConfig with the same fields as a JAX one."""
     kw = {f.name: getattr(jcfg, f.name) for f in dataclasses.fields(jcfg)}

@@ -52,6 +52,17 @@ def _layer(name, **changes):
     return jcfg, port_cfg(jcfg), jp, port_params(jp)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for the many small ops: under the parallel
+    test workers each extra thread only adds contention."""
+    import torch
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _x(jcfg, B=2, S=12, seed=0):
     return np.random.default_rng(seed).standard_normal(
         (B, S, jcfg.d_model)).astype(np.float32)

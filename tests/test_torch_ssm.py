@@ -74,6 +74,17 @@ def jax_forward(jcfg, slice_mode):
                                                slice_mode=slice_mode))
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for the many small ops: under the parallel
+    test workers each extra thread only adds contention."""
+    import torch
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def subnets(jcfg, tcfg):
     """(JAX control, port control, descriptor) of every subnet."""
     js, ts = jsn.enumerate_space(jcfg), tsn.enumerate_space(tcfg)

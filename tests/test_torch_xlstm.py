@@ -44,6 +44,17 @@ from test_torch_ssm import (DECODE_STEPS, MODES, TOL, block_ctrls,
                             jax_param_bytes, subnets, tokens, x_input)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for the many small ops: under the parallel
+    test workers each extra thread only adds contention."""
+    import torch
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _reduced():
     return jget_config("xlstm-125m").reduced()
 

@@ -47,6 +47,11 @@ there). ``--slice-mode switch`` serves with WeightSlice switch mode (the
 serving (``serve_phase_builds``, 0 after warmup) and the kernel
 launches; under ``--transport proc`` they are summed over the children
 and each child's are listed under ``children``.
+
+``--spans PATH`` (``--execute real``, in process) records the serving
+phase's spans (``repro_torch/tracing.py``: the router's, the worker's and
+the executor's) and writes them to PATH as Chrome trace-event JSON, for
+``chrome://tracing`` or Perfetto; the report gives their count.
 """
 from __future__ import annotations
 
@@ -54,12 +59,13 @@ import argparse
 import asyncio
 import json
 import time
+from pathlib import Path
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
-from repro_torch import compat
+from repro_torch import compat, tracing
 from repro_torch.configs import get_config
 from repro_torch.serving import cluster, policies, profiler, simulator, traces
 from repro_torch.serving.autoscaler import SCALINGS, AutoscaleConfig
@@ -429,6 +435,10 @@ def parse_args(argv: Optional[List[str]] = None):
     ap.add_argument("--units", type=int, default=None,
                     help="with --size full: serve the first N repeat units "
                          "of each stage (default: all)")
+    ap.add_argument("--spans", default=None, metavar="PATH",
+                    help="record the serving phase's spans and write them "
+                         "to PATH as Chrome trace-event JSON (--execute "
+                         "real, in process)")
     args = ap.parse_args(argv)
     if args.connect:
         return args
@@ -460,6 +470,9 @@ def parse_args(argv: Optional[List[str]] = None):
         ap.error("--transport proc does not combine with --profile "
                  "measured, --faults or --replica-deaths (fault scripts "
                  "and device-measured profiles stay inproc/simulated)")
+    if args.spans and (args.execute != "real" or args.transport != "inproc"):
+        ap.error("--spans records the in-process router's spans: it needs "
+                 "--execute real and --transport inproc")
     if args.listen and args.transport != "proc":
         ap.error("--listen is the proc transport's TCP front door; "
                  "add --transport proc")
@@ -609,8 +622,20 @@ def run(argv: Optional[List[str]] = None) -> Dict:
                "lat_fast_ms": lat_fast * 1e3, "lat_slow_ms": lat_slow * 1e3,
                "rate_qps": round(rate, 1), "slo_ms": round(slo_ms, 3),
                **_port_keys(args, cfg, _device_name(device))}
-        out.update(_serve_real(args, cfg, prof, pol, executor, arr,
-                               slo_ms / 1e3))
+        if args.spans:
+            tracing.enable()
+        try:
+            out.update(_serve_real(args, cfg, prof, pol, executor, arr,
+                                   slo_ms / 1e3))
+        finally:
+            if args.spans:
+                tracing.disable()
+                lost = tracing.dropped()
+                spans = tracing.drain()
+                Path(args.spans).write_text(
+                    json.dumps(tracing.to_chrome(spans)))
+                out["spans"] = {"path": args.spans, "count": len(spans),
+                                "dropped": lost}
         out.update(warmup=warm, executor=executor.counters())
         return out
 

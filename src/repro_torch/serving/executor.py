@@ -60,6 +60,13 @@ The entry cache, the builds and every step run under one lock: ``Router``
 workers are threads, an entry's static buffers serve one call at a time,
 and the graphs share one memory pool and ``sliced_matmul``'s scratch.
 Scheduling stays in ``serving/engine.py``.
+
+With tracing on (``repro_torch/tracing.py``) a call is the span
+``executor.step`` (attribute ``Bb``), and its phases ``executor.load``
+(the wait for the mirror's last copy, the writes, the copy in),
+``executor.replay`` (the graph's replay, or the step run eagerly, and a
+decode cache's copies) and ``executor.fetch`` (the logits' copy out, the
+synchronize, the host copy).
 """
 from __future__ import annotations
 
@@ -75,7 +82,7 @@ import os
 import numpy as np
 import torch
 
-from repro_torch import compat
+from repro_torch import compat, tracing
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ArchConfig, Stage
 from repro_torch.core import operators as ops
@@ -437,21 +444,24 @@ class SubnetExecutor:
              state=None) -> np.ndarray:
         """One call of entry ``e``: logits (B, vocab) float32, a copy."""
         ctrl = self._ctrl(subnet_idx)
-        with self._lock:
-            self._load(e, subnet_idx, tokens, aux)
-            if e.replays is None:
-                out = self._step(e, ctrl, state)
-            else:
-                replay = e.replays[ctrl["layer_gate"].tobytes()]
-                if state is not None:
-                    torch._foreach_copy_(_leaves(e.state), _leaves(state))
-                out = replay()
-                if state is not None:
-                    torch._foreach_copy_(_leaves(state), _leaves(e.state))
-            e.out_host.copy_(out, non_blocking=True)
-            if self.device.type == "cuda":
-                torch.cuda.current_stream(self.device).synchronize()
-            return e.out_host.numpy()[:B].copy()
+        with tracing.span("executor.step", Bb=e.Bb), self._lock:
+            with tracing.span("executor.load"):
+                self._load(e, subnet_idx, tokens, aux)
+            with tracing.span("executor.replay"):
+                if e.replays is None:
+                    out = self._step(e, ctrl, state)
+                else:
+                    replay = e.replays[ctrl["layer_gate"].tobytes()]
+                    if state is not None:
+                        torch._foreach_copy_(_leaves(e.state), _leaves(state))
+                    out = replay()
+                    if state is not None:
+                        torch._foreach_copy_(_leaves(state), _leaves(e.state))
+            with tracing.span("executor.fetch"):
+                e.out_host.copy_(out, non_blocking=True)
+                if self.device.type == "cuda":
+                    torch.cuda.current_stream(self.device).synchronize()
+                return e.out_host.numpy()[:B].copy()
 
     def _build(self, kind: str, Bb: int, Sb: int) -> _Entry:
         if kind not in ("prefill", "decode"):

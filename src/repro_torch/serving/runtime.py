@@ -20,8 +20,14 @@ door, with placement delegated to ``serving/cluster.py``'s coordinator
 ``ClusterRouter(transport="proc")`` is ``serving/ipc.py``'s
 ``ProcClusterRouter``: one OS process per replica group.
 
-A copy of ``repro/serving/runtime.py``: only the imports, this
-docstring and one comment's wording differ.
+A copy of ``repro/serving/runtime.py`` but for the imports, this
+docstring, one comment's wording, ``make_supernet_workers``' docstring and
+the spans (``repro_torch/tracing.py``): the single-replica ``Router``
+opens ``query``, ``router.admit``, ``router.schedule``,
+``engine.dispatch``, ``router.launch`` and ``router.complete``, and the
+workers of ``make_supernet_workers`` ``worker.run`` and ``worker.pad``.
+The router numbers its dispatches (the spans' ``step``); the engine,
+shared with the simulator, records nothing.
 """
 from __future__ import annotations
 
@@ -33,6 +39,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
+from repro_torch import tracing
 from repro_torch.serving.autoscaler import (AutoscaleConfig, ClusterAutoscaler,
                                       coordinator_forecast)
 from repro_torch.serving.cluster import (ClusterCoordinator, drive_cluster,
@@ -54,6 +61,9 @@ class ServedQuery:
     # resolves to (prediction, acc); created by the running loop in
     # submit() — a Future is not a valid dataclass default value.
     done: Optional[asyncio.Future] = field(default=None)
+    # the query's span from admission to its outcome (tracing.NULL when
+    # tracing is off)
+    span: Any = tracing.NULL
 
 
 @dataclass
@@ -102,6 +112,7 @@ class Router:
         self._task: Optional[asyncio.Task] = None
         self._qid = 0
         self._closed = False
+        self._step = 0                  # dispatches so far: a span's step
 
     # -- legacy surface -------------------------------------------------
 
@@ -136,14 +147,16 @@ class Router:
         """Admit a pre-built query to *this* replica (the ClusterRouter
         places the query first, then hands it to the chosen replica)."""
         now = self.clock.now()
-        sq = ServedQuery(q, payload, asyncio.get_running_loop().create_future())
+        sq = ServedQuery(q, payload, asyncio.get_running_loop().create_future(),
+                         tracing.span("query", parent=None, qid=q.qid))
         self._payloads[q.qid] = sq
         async with self._work:
-            self.engine.admit(q)
-            if not self._idle:
-                # no idle capacity: the query may join a forming batch
-                self.offer_joins()
-            self._work.notify_all()
+            with tracing.span("router.admit", parent=sq.span, qid=q.qid):
+                self.engine.admit(q)
+                if not self._idle:
+                    # no idle capacity: the query may join a forming batch
+                    self.offer_joins()
+                self._work.notify_all()
         return sq.done
 
     def offer_joins(self):
@@ -182,6 +195,7 @@ class Router:
     def _on_drop(self, q: Query):
         sq = self._payloads.pop(q.qid, None)
         if sq is not None and not sq.done.done():
+            sq.span.end(outcome="dropped")
             sq.done.set_result((None, 0.0))
         if sq is not None and not self._payloads:
             # a drop may be the event that resolves the last outstanding
@@ -200,11 +214,18 @@ class Router:
                     or (bool(self._idle) and len(self.engine.edf) > 0))
                 if self._closed:
                     return
+                sched = tracing.span("router.schedule", parent=None)
                 worker = self._idle.pop(0)
             if not worker.alive:
+                sched.end()
                 continue
-            d = self.engine.next_dispatch(worker.wid, self.clock.now())
+            with tracing.span("engine.dispatch", parent=sched) as sp:
+                d = self.engine.next_dispatch(worker.wid, self.clock.now())
+                if sp and d is not None:
+                    sp.set(step=self._step, subnet=d.pareto_idx,
+                           rows=len(d.queries), queued=len(self.engine.edf))
             if d is None:
+                sched.end()
                 # drops emptied the queue, or the policy declined to
                 # schedule: park until new work/capacity arrives rather
                 # than spinning on an unchanged queue
@@ -213,12 +234,15 @@ class Router:
                     if len(self.engine.edf) > 0 and not self._closed:
                         await self._work.wait()
                 continue
+            step, self._step = self._step, self._step + 1
             if d.open:
-                asyncio.create_task(self._form_and_run(worker, d))
+                asyncio.create_task(self._form_and_run(worker, d, step))
             else:
-                asyncio.create_task(self._run_batch(worker, d))
+                asyncio.create_task(self._run_batch(worker, d, step))
+            sched.end(step=step)
 
-    async def _form_and_run(self, worker: WorkerHandle, d: Dispatch):
+    async def _form_and_run(self, worker: WorkerHandle, d: Dispatch,
+                            step: int):
         """Hold an open batch for its join window (continuous batching):
         launch early if joins fill it, on fault, or at window expiry."""
         ev = asyncio.Event()
@@ -236,43 +260,53 @@ class Router:
             self._open_events.pop(d.wid, None)
         if d.faulted:
             return                      # queries already re-enqueued
-        await self._run_batch(worker, d)
+        await self._run_batch(worker, d, step)
 
-    async def _run_batch(self, worker: WorkerHandle, d: Dispatch):
+    async def _run_batch(self, worker: WorkerHandle, d: Dispatch,
+                         step: int):
         if d.faulted:                   # killed between formation and start
             await self._notify()
             return
-        if not d.launched:
-            self.engine.launch(d, self.clock.now())
-        # payloads may be gone for queries resolved by an early drain()
-        pairs = [(q, self._payloads.get(q.qid)) for q in d.queries]
-        payloads = [sq.payload for _, sq in pairs if sq is not None]
-        if payloads:
-            # SubNetAct actuation == a different control tuple; executed
-            # in a thread so the event loop keeps routing.
-            preds = await asyncio.to_thread(worker.run, d.pareto_idx, payloads)
-        else:
-            preds = []
+        # the launch ends at the hand-off to the worker thread; inside the
+        # block it stays the parent of the thread's spans
+        with tracing.span("router.launch", parent=None, step=step) as sp:
+            if not d.launched:
+                self.engine.launch(d, self.clock.now())
+            # payloads may be gone for queries resolved by an early drain()
+            pairs = [(q, self._payloads.get(q.qid)) for q in d.queries]
+            payloads = [sq.payload for _, sq in pairs if sq is not None]
+            sp.end()
+            if payloads:
+                # SubNetAct actuation == a different control tuple; executed
+                # in a thread so the event loop keeps routing.
+                preds = await asyncio.to_thread(worker.run, d.pareto_idx,
+                                                payloads)
+            else:
+                preds = []
         fin = self.clock.now()
         if d.faulted:
             # worker died mid-batch: the engine already re-enqueued the
             # queries — discard the (lost) result and wake the scheduler
             await self._notify()
             return
-        self.engine.complete(d, fin)
-        arr = np.asarray(preds)
-        i = 0
-        for q, sq in pairs:
-            if sq is None:
-                continue
-            self._payloads.pop(q.qid, None)
-            if not sq.done.done():
-                sq.done.set_result((arr[i], d.acc))
-            i += 1
-        async with self._work:
-            if worker.alive:
-                self._idle.append(worker)
-            self._work.notify_all()
+        with tracing.span("router.complete", parent=None, step=step) as sp:
+            self.engine.complete(d, fin)
+            arr = np.asarray(preds)
+            i = 0
+            for q, sq in pairs:
+                if sq is None:
+                    continue
+                self._payloads.pop(q.qid, None)
+                if not sq.done.done():
+                    sq.span.end(outcome="served", step=step)
+                    sq.done.set_result((arr[i], d.acc))
+                i += 1
+            async with self._work:
+                if worker.alive:
+                    self._idle.append(worker)
+                self._work.notify_all()
+            if sp:
+                sp.set(queued=len(self.engine.edf))
 
     async def drain(self, timeout: float = 10.0):
         """Wait for every outstanding query to resolve, then shut the
@@ -307,6 +341,7 @@ class Router:
             sq.query.dropped = True
             sq.query.timed_out = expired
             if not sq.done.done():
+                sq.span.end(outcome="timed_out" if expired else "dropped")
                 sq.done.set_result((None, 0.0))
         self._payloads.clear()
 
@@ -690,9 +725,12 @@ class ClusterRouter:
 
 def make_supernet_workers(n: int, step_fn: Callable[[int, Any], Any],
                           pad_batch: Callable[[List[Any]], Any]) -> List[WorkerHandle]:
-    """Workers sharing one jitted supernet step. ``step_fn(subnet_idx,
-    batch_array)`` must be jit-compiled with the control tuple as data
-    so actuation never recompiles."""
+    """Workers sharing one supernet step. ``step_fn(subnet_idx,
+    batch_array)`` takes the control tuple as data (the executor's warmed
+    entries and CUDA graphs), so actuating another subnet builds nothing."""
     def run(subnet_idx: int, payloads: List[Any]):
-        return step_fn(subnet_idx, pad_batch(payloads))
+        with tracing.span("worker.run"):
+            with tracing.span("worker.pad"):
+                batch = pad_batch(payloads)
+            return step_fn(subnet_idx, batch)
     return [WorkerHandle(wid=i, run=run) for i in range(n)]

@@ -47,10 +47,12 @@ Phases, one result line each:
    over G = 1, 4, 5, 7): the same case checks, and device ms beside SDPA
    and the bound counted at the real head_dim. ``sliced_matmul`` over a stack
    of experts (``EXPERT_STACKS``: mixtral's 8 experts of 4096 x 14336 at
-   C = 8 and 40 rows, llama4's 128 of 5120 x 8192 at C = 8; up and down
+   C = 8 and 40 rows and at its burst steps' C = 320 and 640, which run
+   the 128 x 256 tile, llama4's 128 of 5120 x 8192 at C = 8; up and down
    at each width): against the plain version, zeros past active_out,
-   bitwise repeats, one device kernel a call, device ms beside
-   ``torch.bmm`` on the active block and the bound.
+   bitwise repeats, one device kernel a call, the tile the case is meant
+   to run, device ms beside ``torch.bmm`` on the active block and the
+   bound.
 3. Serve: ``repro_torch.launch.serve`` at the full width and depth of
    qwen2-1.5b (random weights from a seeded ``torch.Generator``), SlackFit
    through the port's Router and the executor's CUDA graphs; every query
@@ -883,17 +885,25 @@ def sliced_digest(torch):
             "sha256": h.hexdigest()}
 
 
+# rows of the 2-d cases that run the 128 x 256 tile (qwen2-1.5b's FFN at a
+# burst step); the others run the 64- and 128-row tiles of 128 columns
+WIDE_ROWS = (2048, 4096)
+
+
 def _sliced_cases(torch, card, randn):
     """sliced_matmul at the switch path's shapes (qwen2-1.5b: FFN gate/up
     (M,1536)x(1536,8960), FFN down (M,8960)x(8960,1536), wo as 2 K
-    segments of 768, M = 128 prefill rows and 8 decode rows; M = 2048, a
-    prefill of B=8, S=256, reported only) and at awkward ones: 7 rows, a
-    partial K tile, a partial N tile, and per-group strided views. Widths
-    are int32 tensors in device memory. Each case reports the blocks and
-    splits of the kernel's plan (``split_plan``, the Python mirror of
-    what the kernel works out on the card) and the wrapper's host
-    microseconds per call; two launches must give the same bits. Returns
-    the FFN-up case at M=128, full width (the headline)."""
+    segments of 768, M = 128 prefill rows and 8 decode rows; M = 2048 and
+    4096, the burst steps of B = 16 and 32 queries of 128 tokens, which
+    run the 128 x 256 tile) and at awkward ones: 7 rows, a partial K
+    tile, a partial N tile, and per-group strided views. Widths are int32
+    tensors in device memory. Each case reports the blocks and splits of
+    the kernel's plan (``split_plan``, the Python mirror of what the
+    kernel works out on the card) and the wrapper's host microseconds per
+    call; two launches must give the same bits, and the plan the tile
+    the case is meant to run (``WIDE_ROWS``: one device kernel a call
+    there). Returns the FFN-up case at M=128, full width (the
+    headline)."""
     from repro_torch.kernels import sliced_matmul as sm
     dev = "cuda"
     # (label, M, K, N, active_in, active_out, segments)
@@ -907,7 +917,9 @@ def _sliced_cases(torch, card, randn):
                   for ai in (768, 384)]
     cases += [("awkward M=7 ai=200 ao=100", 7, 1536, 8960, 200, 100, 1),
               ("ffn_up M=2048 ao=8960", 2048, 1536, 8960, None, 8960, 1),
-              ("ffn_down M=2048 ai=8960", 2048, 8960, 1536, 8960, None, 1)]
+              ("ffn_down M=2048 ai=8960", 2048, 8960, 1536, 8960, None, 1),
+              ("ffn_up M=4096 ao=8960", 4096, 1536, 8960, None, 8960, 1),
+              ("ffn_down M=4096 ai=8960", 4096, 8960, 1536, 8960, None, 1)]
     copies = 4        # 4 x 27.5 MB of weights: more than the 50 MB L2
     headline, errs = None, []
     for label, M, K, N, ai, ao, nseg in cases:
@@ -927,6 +939,16 @@ def _sliced_cases(torch, card, randn):
             fail(f"sliced_matmul {label}: two launches gave different bits")
         errs.append(err)
         plan = sm.split_plan(M, N, K, nseg, ai, ao, sm.grid_size(x.device))
+        want_bn = sm.BN_WIDE if M in WIDE_ROWS else sm.BN
+        if plan.bn != want_bn:
+            fail(f"sliced_matmul {label}: the plan takes {plan.bn} columns "
+                 f"a tile, not {want_bn}")
+        if M in WIDE_ROWS:
+            names = device_kernels(torch, lambda: sm.sliced_matmul(
+                x, ws[0], a, b, segments=nseg), n=1)
+            if len(names) != 1 or "sliced_matmul_kernel" not in names[0]:
+                fail(f"sliced_matmul {label}: device kernels {names} a "
+                     f"call, not one")
         kin = (K // nseg if ai is None else ai) * nseg
         kout = N if ao is None else ao
         bound, by = card.bound(2 * (M * kin + kin * kout + M * N),
@@ -935,7 +957,7 @@ def _sliced_cases(torch, card, randn):
         row = dict(
             shape=[M, K, N], active_in=ai, active_out=ao, segments=nseg,
             max_abs_err=err, ctas=plan.grid,
-            busy_ctas=min(plan.grid, plan.units), tile=[plan.bm, sm.BN],
+            busy_ctas=min(plan.grid, plan.units), tile=[plan.bm, plan.bn],
             splits=plan.splits, tiles_with_one_more_split=plan.extra,
             host_us=host_us(torch, lambda: sm.sliced_matmul(
                 x, ws[0], a, b, segments=nseg)),
@@ -984,11 +1006,13 @@ def _sliced_cases(torch, card, randn):
     return dict(headline, max_abs_err=max(errs), cases=len(errs))
 
 
-# the expert stacks of MoE switch mode: (config, E, d, f, capacities)
-# with C = 8 at a decode step of B = 8 (the least capacity) and C = 40 at
-# a mixtral prefill of B = 8, S = 16 (8 * 16 * 2 * 1.25 / 8)
-EXPERT_STACKS = (("mixtral-8x7b", 8, 4096, 14336, (8, 40)),
-                 ("llama4-maverick-400b-a17b", 128, 5120, 8192, (8,)))
+# the expert stacks of MoE switch mode: (config, E, d, f, capacities,
+# capacities that run the 128 x 256 tile) with C = 8 at a decode step of
+# B = 8 (the least capacity), C = 40 at a mixtral prefill of B = 8, S = 16
+# (8 * 16 * 2 * 1.25 / 8), and C = 320 and 640 at mixtral's burst steps,
+# prefills of B = 8 and 16 queries of 128 tokens
+EXPERT_STACKS = (("mixtral-8x7b", 8, 4096, 14336, (8, 40), (320, 640)),
+                 ("llama4-maverick-400b-a17b", 128, 5120, 8192, (8,), ()))
 
 
 def _grouped_cases(torch, card, randn):
@@ -998,19 +1022,20 @@ def _grouped_cases(torch, card, randn):
     the width) and the down product (K = f, N = d, active_in = the width)
     at each ``moe_ffn`` width. Each case: against the plain version
     (BF16_TOL), columns past active_out exactly 0, two launches bitwise
-    equal, one device kernel a call; device ms against ``torch.bmm`` on
-    the active block and against the bound (bytes: the active weight
-    block, x and y once). Returns the rows keyed by case."""
+    equal, one device kernel a call, the plan's tile the one the case is
+    meant to run; device ms against ``torch.bmm`` on the active block and
+    against the bound (bytes: the active weight block, x and y once).
+    Returns the rows keyed by case."""
     from repro_torch.configs import get_config
     from repro_torch.core import subnet as sn
     from repro_torch.kernels import sliced_matmul as sm
     dev = "cuda"
     rows = {}
-    for name, E, d, f, caps in EXPERT_STACKS:
+    for name, E, d, f, caps, wide_caps in EXPERT_STACKS:
         widths = sn.width_options(get_config(name))["moe_ffn"]
         for kind, K, N in (("up", d, f), ("down", f, d)):
             w = randn(E, K, N)
-            for C, width in itertools.product(caps, widths):
+            for C, width in itertools.product(caps + wide_caps, widths):
                 label = f"{name} {kind} C={C} width={width}"
                 x = randn(E, C, K)
                 wid = torch.full((), width, dtype=torch.int32, device=dev)
@@ -1035,6 +1060,10 @@ def _grouped_cases(torch, card, randn):
                 plan = sm.split_plan(C, N, K, 1, None if ai is None else width,
                                      None if ao is None else width,
                                      sm.grid_size(x.device), E)
+                want_bn = sm.BN_WIDE if C in wide_caps else sm.BN
+                if plan.bn != want_bn:
+                    fail(f"sliced_matmul experts {label}: the plan takes "
+                         f"{plan.bn} columns a tile, not {want_bn}")
                 bound, by = card.bound(2 * E * (C * kin + kin * kout + C * N),
                                        2 * E * C * kin * kout)
 
@@ -1042,7 +1071,7 @@ def _grouped_cases(torch, card, randn):
                     return torch.bmm(x[:, :, :kin], w[:, :kin, :kout])
                 row = dict(
                     shape=[E, C, K, N], width=width, max_abs_err=err,
-                    tile=[plan.bm, sm.BN], live_tiles=plan.live_tiles,
+                    tile=[plan.bm, plan.bn], live_tiles=plan.live_tiles,
                     splits=plan.splits, ms=time_ms(torch, call, iters=20),
                     plain_ms=time_ms(torch, lambda: sm.sliced_matmul_plain(
                         x, w, ai, ao), iters=3, warmup=1),

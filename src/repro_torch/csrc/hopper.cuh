@@ -98,10 +98,25 @@ template <int N>
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
 }
-// keep the compiler from moving accumulator accesses across wgmma
+// hand registers between the warpgroups of a block (sm_90a): every thread
+// of a warpgroup executes one of these; dec lowers its threads' registers
+// to N and returns the rest to the block's pool, inc waits for the pool to
+// raise them to N
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+
+// keep the compiler from moving accumulator accesses across wgmma (N
+// accumulators a thread)
+template <int N = 64>
 __device__ __forceinline__ void fence_acc(float* d) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
 }
 
 using EncodeTiled = CUresult (*)(

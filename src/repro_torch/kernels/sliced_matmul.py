@@ -13,7 +13,7 @@ of ``active_in`` (the GQA output projection, one segment per KV head).
 
 What bounds it on the H100: the bytes of the active weight block at the
 serving shapes (M <= 128 rows against the 1536 x 8960 FFN weights), the
-tensor cores' operations at M = 2048 and beyond. The TPU kernel walks K
+tensor cores' operations from M = 512. The TPU kernel walks K
 on a sequential grid axis into an accumulator; here the grid is one block
 per SM, a static fact, and every block works out its share of the live
 work on the card, from the widths it reads: the live output tiles times
@@ -27,8 +27,11 @@ per tile) sums them in split order and writes bf16: no float atomics, so
 the bits repeat from launch to launch. :func:`split_plan` is that
 schedule written once in Python, the spec the CPU tests hold it to; the
 wrapper does not call it (nothing on the host depends on a width). The
-main loop is a TMA ring filled by one producer warp and drained by
-``wgmma`` warpgroups (``csrc/sliced_matmul.cu`` has the design).
+main loop is a TMA ring filled by a producer and drained by ``wgmma``
+warpgroups (``csrc/sliced_matmul.cu`` has the design), in block tiles of
+128 columns, or of 256 where the tensor cores bound the product: the
+wrapper picks the tile per launch from the static shapes
+(:func:`block_cols`), so one CUDA graph serves every width.
 
 The wrapper takes 2-d operands with any row stride that keeps rows 16-byte
 aligned, so per-group views need no copy; ``x`` of more dimensions is
@@ -43,7 +46,7 @@ import ctypes
 import functools
 import threading
 from dataclasses import dataclass
-from typing import Iterator, Tuple
+from typing import Iterator, Optional, Tuple
 
 import torch
 
@@ -60,22 +63,28 @@ _ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
              + [ctypes.c_longlong] * 6
              + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
              + [ctypes.c_void_p, ctypes.c_longlong] * 2
-             + [ctypes.c_int, ctypes.c_void_p])
+             + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
 _C_WORKSPACE = "repro_sliced_matmul_workspace"
-_WORKSPACE_ARGTYPES = [ctypes.c_int, ctypes.c_int,
+_WORKSPACE_ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
                        ctypes.POINTER(ctypes.c_longlong),
                        ctypes.POINTER(ctypes.c_longlong)]
 
-# the kernel's plan, mirrored by split_plan (csrc/sliced_matmul.cu): BN
-# output columns and BK deep K steps per block tile, block_rows(M) output
-# rows; CTAS_PER_SM blocks of the grid per SM; at most WORKSPACE_TILES fp32
-# partials per block; a split's partial costs about SPLIT_COST K steps.
-# The scratch a launch needs is the kernel's to say (_workspace_size).
+# the kernel's plan, mirrored by split_plan (csrc/sliced_matmul.cu):
+# block_rows(M) x block_cols(...) outputs (BN or BN_WIDE columns) and BK
+# deep K steps per block tile; CTAS_PER_SM blocks of the grid per SM; at
+# most WORKSPACE_TILES fp32 partials per block; a split's partial costs
+# about SPLIT_COST K steps. The scratch a launch needs is the kernel's to
+# say (_workspace_size).
 BN = 128
+BN_WIDE = 256
 BK = 64
 CTAS_PER_SM = 1
 WORKSPACE_TILES = 1
 SPLIT_COST = 4
+# block_cols takes the wide tile from WIDE_ROUNDS grids of wide tiles, or
+# from half a grid of them over WIDE_DEEP K steps
+WIDE_ROUNDS = 2
+WIDE_DEEP = 64
 
 
 def block_rows(M: int) -> int:
@@ -84,6 +93,33 @@ def block_rows(M: int) -> int:
     tiles double the output tiles that share the K steps), two
     warpgroups' 128 beyond."""
     return 64 if M <= 128 else 128
+
+
+@functools.lru_cache(maxsize=1024)
+def block_cols(M: int, N: int, K: int, segments: int, experts: int,
+               grid: int) -> int:
+    """Output columns of one block tile, picked per launch from the static
+    shapes and the grid alone (never from the widths, which are data on
+    the card, so one CUDA graph serves every subnet). ``M`` is the rows of
+    one product (an expert's capacity slots for a stack).
+
+    BN_WIDE (128 x 256 tiles) where whole wide tiles keep every block
+    busy: at the full width they number at least WIDE_ROUNDS times the
+    grid, or at least half the grid over at least WIDE_DEEP K steps, which
+    pay for a tile's ring fill and epilogue (and for the fp32 partials of
+    the few tiles that one round splits). Else BN, and always BN up to M
+    = 128 (64-row tiles). Measured on the H100 at every shape the
+    benchmark's cells serve (``PERF.md``): the wide tile is 1.1-1.45x
+    faster wherever this picks it, and slower (its few tiles split, or
+    too few K steps a tile) wherever it does not."""
+    if block_rows(M) < 128:
+        return BN
+    wide_tiles = experts * _cdiv(M, 128) * _cdiv(N, BN_WIDE)
+    k_steps = segments * _cdiv(K // segments, BK)
+    if wide_tiles >= WIDE_ROUNDS * grid or (
+            2 * wide_tiles >= grid and k_steps >= WIDE_DEEP):
+        return BN_WIDE
+    return BN
 
 
 def sliced_matmul_plain(x, w, active_in, active_out, *, segments: int = 1):
@@ -141,6 +177,7 @@ class SplitPlan:
     workspace slot u; the splits of a tile are summed in split order."""
     grid: int
     bm: int               # rows of a block tile: block_rows(M)
+    bn: int               # columns of a block tile: block_cols(...)
     experts: int          # E: products of the stack, 1 for a 2-d one
     m_tiles: int
     n_tiles: int
@@ -212,23 +249,29 @@ class SplitPlan:
 
 
 def split_plan(M: int, N: int, K: int, segments: int, active_in, active_out,
-               grid: int, experts: int = 1) -> SplitPlan:
+               grid: int, experts: int = 1, bn: Optional[int] = None,
+               ) -> SplitPlan:
     """The schedule the kernel computes on the card, from the shapes (M, N
-    and K of each of ``experts`` products), the widths (None: full) and
-    the grid size alone."""
+    and K of each of ``experts`` products), the widths (None: full), the
+    grid size and the tile's columns ``bn`` (None: the wrapper's pick,
+    :func:`block_cols`) alone."""
     seg = K // segments
     ai = seg if active_in is None else min(max(int(active_in), 0), seg)
     ao = N if active_out is None else min(max(int(active_out), 0), N)
     bm = block_rows(M)
+    if bn is None:
+        bn = block_cols(M, N, K, segments, experts, grid)
+    if bn not in (BN, BN_WIDE) or (bn == BN_WIDE and bm < 128):
+        raise ValueError(f"{NAME}: no {bm} x {bn} tile")
     kl = _cdiv(ai, BK)
     T = kl * segments
-    nl = _cdiv(ao, BN) if T else 0
+    nl = _cdiv(ao, bn) if T else 0
     mt = _cdiv(M, bm)
     L = experts * mt * nl
     S = choose_splits(L, T, grid)
     extra = min(L, grid - L * S) if L * S < grid and S < T else 0
-    return SplitPlan(grid=grid, bm=bm, experts=experts, m_tiles=mt,
-                     n_tiles=_cdiv(N, BN), live_n_tiles=nl, k_tiles=T,
+    return SplitPlan(grid=grid, bm=bm, bn=bn, experts=experts, m_tiles=mt,
+                     n_tiles=_cdiv(N, bn), live_n_tiles=nl, k_tiles=T,
                      k_tiles_per_seg=kl, splits=S, extra=extra, seg=seg,
                      active_in=ai)
 
@@ -244,27 +287,32 @@ def grid_size(device: torch.device) -> int:
 
 _scratch_lock = threading.Lock()
 _scratch = {}
+# scratch outgrown on its stream, kept alive: a CUDA graph captured with it
+# still reads and resets it at every replay
+_retired = []
 
 
 @functools.lru_cache(maxsize=256)
-def _workspace_size(M: int, grid: int) -> Tuple[int, int]:
-    """(fp32 elements, int32 counters) of the scratch of an M-row launch on
-    ``grid`` blocks, as the kernel's own source decides them. A stack of
-    experts needs no more: the plan splits tiles only while all experts'
-    units fit the same bound."""
+def _workspace_size(M: int, bn: int, grid: int) -> Tuple[int, int]:
+    """(fp32 elements, int32 counters) of the scratch of an M-row launch of
+    ``bn``-column tiles on ``grid`` blocks, as the kernel's own source
+    decides them. A stack of experts needs no more: the plan splits tiles
+    only while all experts' units fit the same bound."""
     elems, counters = ctypes.c_longlong(), ctypes.c_longlong()
     build.check(NAME, build.function(_C_WORKSPACE, _WORKSPACE_ARGTYPES)(
-        M, grid, ctypes.byref(elems), ctypes.byref(counters)))
+        M, bn, grid, ctypes.byref(elems), ctypes.byref(counters)))
     return elems.value, counters.value
 
 
-def _scratch_for(device: torch.device, stream: int, M: int, grid: int):
+def _scratch_for(device: torch.device, stream: int, M: int, bn: int,
+                 grid: int):
     """(workspace, counters) of launches on one stream, at least the size
     the kernel asks for; the counters are zero between launches because
     the last block on a tile resets its own. Sized from static facts only
-    and grown, never shrunk; launches on one stream run in order, so they
-    may share them."""
-    elems, n_counters = _workspace_size(M, grid)
+    and grown, never shrunk (the outgrown pair stays allocated, for the
+    graphs that captured it); launches on one stream run in order, so
+    they may share them."""
+    elems, n_counters = _workspace_size(M, bn, grid)
     key = (device, stream)
     with _scratch_lock:
         got = _scratch.get(key)
@@ -273,6 +321,7 @@ def _scratch_for(device: torch.device, stream: int, M: int, grid: int):
             if got is not None:
                 elems = max(elems, got[0].numel())
                 n_counters = max(n_counters, got[1].numel())
+                _retired.append(got)
             got = (torch.empty(elems, dtype=torch.float32, device=device),
                    torch.zeros(n_counters, dtype=torch.int32, device=device))
             _scratch[key] = got
@@ -302,7 +351,14 @@ def _check_rows(name: str, t: torch.Tensor) -> None:
 def sliced_matmul(x, w, active_in, active_out, *, segments: int = 1):
     """x: (..., K) or a strided (M, K) view with w: (K, N), or x: (E, M, K)
     with a stack w: (E, K, N); bf16 CUDA tensors. Returns (..., N), or
-    (E, M, N), bf16 (see :func:`sliced_matmul_plain`)."""
+    (E, M, N), bf16 (see :func:`sliced_matmul_plain`), in the block tile
+    :func:`block_cols` picks from the shapes."""
+    return _sliced_matmul(x, w, active_in, active_out, segments, None)
+
+
+def _sliced_matmul(x, w, active_in, active_out, segments: int, bn):
+    """:func:`sliced_matmul` in tiles of ``bn`` columns (None: the pick of
+    :func:`block_cols`); the tests and the kernel's bench force a tile."""
     for name, t in (("x", x), ("w", w)):
         if t.device.type != "cuda" or t.device != x.device:
             raise ValueError(f"{NAME}: {name} must be on {x.device} (CUDA), "
@@ -322,25 +378,28 @@ def sliced_matmul(x, w, active_in, active_out, *, segments: int = 1):
     _check_rows("x", x2)
     _check_rows("w", w)
     M = x2.shape[-2]
+    grid = grid_size(x.device)
+    if bn is None:
+        bn = block_cols(M, N, K, segments, x2.shape[0] if stack else 1, grid)
     y = torch.empty(x2.shape[:-1] + (N,), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y.reshape(*lead, N)
     ai_ptr, ai = _width("active_in", active_in, K // segments, x.device)
     ao_ptr, ao = _width("active_out", active_out, N, x.device)
-    grid = grid_size(x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    part, counters = _scratch_for(x.device, stream, M, grid)
+    part, counters = _scratch_for(x.device, stream, M, bn, grid)
     build.check(NAME, _launch(x2, w, y, segments, ai_ptr, ai, ao_ptr, ao,
-                              part, counters, grid, stream))
+                              part, counters, grid, stream, bn))
     compat.note_launch(GROUPED if stack else NAME)
     return y.reshape(*lead, N)
 
 
 def _launch(x2, w, y, segments, ai_ptr, ai, ao_ptr, ao, part, counters,
-            grid, stream) -> int:
+            grid, stream, bn: int) -> int:
     """One launch of the C entry point on 2-d operands or a stack of
-    experts (3-d); its CUDA error code (0: launched). The kernel refuses
-    scratch smaller than it needs."""
+    experts (3-d), in tiles of ``bn`` columns; its CUDA error code (0:
+    launched). The kernel refuses scratch smaller than it needs, and a
+    tile it has not."""
     E = x2.shape[0] if x2.dim() == 3 else 1
     M, K = x2.shape[-2:]
     N = w.shape[-1]
@@ -355,4 +414,4 @@ def _launch(x2, w, y, segments, ai_ptr, ai, ao_ptr, ao, part, counters,
         x2.data_ptr(), w.data_ptr(), y.data_ptr(), E, M, N, K, segments,
         xs, ws, ys, xes, wes, yes, ai_ptr, ai, ao_ptr, ao,
         part.data_ptr(), part.numel(), counters.data_ptr(), counters.numel(),
-        grid, stream)
+        bn, grid, stream)

@@ -603,23 +603,28 @@ def test_sliced_matmul_kernel_refuses_short_scratch(cuda):
     x = torch.ones((128, 1536), dtype=torch.bfloat16, device=cuda)
     w = torch.ones((1536, 1536), dtype=torch.bfloat16, device=cuda)
     for M in (1, 128, 129, 2048):
-        elems, counters = sm._workspace_size(M, grid)
-        assert elems >= sm.WORKSPACE_TILES * grid * sm.block_rows(M) * sm.BN
-        assert counters >= grid
-    elems, counters = sm._workspace_size(128, grid)
+        for bn in (sm.BN, sm.BN_WIDE):
+            if bn == sm.BN_WIDE and sm.block_rows(M) < 128:
+                with pytest.raises(RuntimeError):     # no 64 x 256 tile
+                    sm._workspace_size(M, bn, grid)
+                continue
+            elems, counters = sm._workspace_size(M, bn, grid)
+            assert elems >= sm.WORKSPACE_TILES * grid * sm.block_rows(M) * bn
+            assert counters >= bn // sm.BN * grid   # one a 128-column half
+    elems, counters = sm._workspace_size(128, sm.BN, grid)
     y = torch.full((128, 1536), 7.0, dtype=torch.bfloat16, device=cuda)
     stream = torch.cuda.current_stream(cuda).cuda_stream
     for n_part, n_count in ((elems - 1, counters), (elems, counters - 1)):
         part = torch.empty(n_part, dtype=torch.float32, device=cuda)
         cnt = torch.zeros(n_count, dtype=torch.int32, device=cuda)
         assert sm._launch(x, w, y, 1, None, 1536, None, 1536, part, cnt,
-                          grid, stream) != 0
+                          grid, stream, sm.BN) != 0
     torch.cuda.synchronize()
     assert (y == 7.0).all()
     part = torch.empty(elems, dtype=torch.float32, device=cuda)
     cnt = torch.zeros(counters, dtype=torch.int32, device=cuda)
     assert sm._launch(x, w, y, 1, None, 1536, None, 1536, part, cnt,
-                      grid, stream) == 0
+                      grid, stream, sm.BN) == 0
     torch.testing.assert_close(y.float(), torch.full_like(y.float(), 1536.0))
 
 
@@ -689,21 +694,152 @@ def test_grouped_sliced_matmul_refuses_short_scratch(cuda):
     grid = sm.grid_size(cuda)
     x = torch.ones((8, 8, 512), dtype=torch.bfloat16, device=cuda)
     w = torch.ones((8, 512, 256), dtype=torch.bfloat16, device=cuda)
-    elems, counters = sm._workspace_size(8, grid)
+    elems, counters = sm._workspace_size(8, sm.BN, grid)
     y = torch.full((8, 8, 256), 7.0, dtype=torch.bfloat16, device=cuda)
     stream = torch.cuda.current_stream(cuda).cuda_stream
     for n_part, n_count in ((elems - 1, counters), (elems, counters - 1)):
         part = torch.empty(n_part, dtype=torch.float32, device=cuda)
         cnt = torch.zeros(n_count, dtype=torch.int32, device=cuda)
         assert sm._launch(x, w, y, 1, None, 512, None, 256, part, cnt,
-                          grid, stream) != 0
+                          grid, stream, sm.BN) != 0
     torch.cuda.synchronize()
     assert (y == 7.0).all()
     part = torch.empty(elems, dtype=torch.float32, device=cuda)
     cnt = torch.zeros(counters, dtype=torch.int32, device=cuda)
     assert sm._launch(x, w, y, 1, None, 512, None, 256, part, cnt,
-                      grid, stream) == 0
+                      grid, stream, sm.BN) == 0
     torch.testing.assert_close(y.float(), torch.full_like(y.float(), 512.0))
+
+
+# the 128 x 256 block tile, forced whatever block_cols picks: (M, K, N,
+# active_in, active_out) at qwen2-1.5b's FFN up and down with active_in
+# not a multiple of 64 and active_out not a multiple of 256, and ragged
+# shapes whose last column tile reaches past N (TMA boxes wholly outside
+# w load zeros)
+WIDE_CASES = [(M, K, N, ai, ao) for M in (512, 1024, 4096)
+              for K, N, ai, ao in ((1536, 8960, 1000, 4480),
+                                   (8960, 1536, 6600, 1000))]
+WIDE_CASES += [(129, 264, 136, 9, 100), (300, 520, 200, 300, 136),
+               (777, 1536, 8960, None, None)]
+
+
+@pytest.mark.parametrize("M,K,N,ai,ao", WIDE_CASES)
+def test_sliced_matmul_wide_tile_matches_plain(cuda, M, K, N, ai, ao):
+    """The wide tile against the plain version, widths as ints and read
+    from device memory, columns past active_out exactly 0, two launches
+    bitwise equal."""
+    gen = torch.Generator(device=cuda).manual_seed(M + K + N)
+    x, w = _randn(gen, M, K, dev=cuda), _randn(gen, K, N, dev=cuda)
+    want = sm.sliced_matmul_plain(x, w, ai, ao)
+    for a, b in ((ai, ao), (None if ai is None else _i32(ai, cuda),
+                            None if ao is None else _i32(ao, cuda))):
+        got = sm._sliced_matmul(x, w, a, b, 1, sm.BN_WIDE)
+        torch.testing.assert_close(got.float(), want.float(), **TOL)
+        if ao is not None:
+            assert not got[:, ao:].any()
+        assert torch.equal(got, sm._sliced_matmul(x, w, a, b, 1,
+                                                  sm.BN_WIDE))
+
+
+@pytest.mark.parametrize("heads", [6, 3, 1])
+def test_sliced_matmul_wide_tile_takes_segments(cuda, heads):
+    """qwen2-1.5b's wo in 2 segments of 768 at M = 1024 in the wide tile:
+    the first heads * 128 rows of each segment."""
+    gen = torch.Generator(device=cuda).manual_seed(10 + heads)
+    x, w = _randn(gen, 1024, 1536, dev=cuda), _randn(gen, 1536, 1536,
+                                                      dev=cuda)
+    a = _i32(heads * 128, cuda)
+    got = sm._sliced_matmul(x, w, a, None, 2, sm.BN_WIDE)
+    torch.testing.assert_close(
+        got.float(),
+        sm.sliced_matmul_plain(x, w, a, None, segments=2).float(), **TOL)
+    assert torch.equal(got, sm._sliced_matmul(x, w, a, None, 2, sm.BN_WIDE))
+
+
+@pytest.mark.parametrize("kind", ["up", "down"])
+@pytest.mark.parametrize("C", [320, 640])
+def test_grouped_sliced_matmul_wide_tile_matches_plain(cuda, C, kind):
+    """mixtral-8x7b's stack of 8 experts at the burst capacities in the
+    wide tile, at three quarters of the expert width, against the plain
+    version; columns past active_out exactly 0; bitwise repeats."""
+    gen = torch.Generator(device=cuda).manual_seed(C + len(kind))
+    K, N = (4096, 14336) if kind == "up" else (14336, 4096)
+    x, w = _randn(gen, 8, C, K, dev=cuda), _randn(gen, 8, K, N, dev=cuda)
+    wid = _i32(10752, cuda)
+    a, b = (None, wid) if kind == "up" else (wid, None)
+    got = sm._sliced_matmul(x, w, a, b, 1, sm.BN_WIDE)
+    torch.testing.assert_close(
+        got.float(), sm.sliced_matmul_plain(x, w, a, b).float(), **TOL)
+    if kind == "up":
+        assert not got[..., 10752:].any()
+    assert torch.equal(got, sm._sliced_matmul(x, w, a, b, 1, sm.BN_WIDE))
+
+
+@pytest.mark.parametrize("M,K,N,E,bn", [
+    (128, 1536, 8960, 0, 128), (512, 1536, 8960, 0, 128),
+    (4096, 1536, 8960, 0, 256), (2048, 8960, 1536, 0, 256),
+    (1024, 1536, 1536, 0, 128), (640, 4096, 14336, 8, 256)])
+def test_sliced_matmul_picks_its_tile_from_the_shape(cuda, M, K, N, E, bn):
+    """The wrapper launches the tile block_cols picks, one kernel a call
+    counted once under its launch name, and its bits are those of that
+    tile forced."""
+    from repro_torch import compat
+    from torch.profiler import ProfilerActivity, profile
+    gen = torch.Generator(device=cuda).manual_seed(M + N)
+    lead = (E,) if E else ()
+    x = _randn(gen, *lead, M, K, dev=cuda)
+    w = _randn(gen, *lead, K, N, dev=cuda)
+    assert sm.block_cols(M, N, K, 1, max(E, 1), sm.grid_size(cuda)) == bn
+    before = dict(compat.launch_counts())
+    got = sm.sliced_matmul(x, w, None, None)
+    after = compat.launch_counts()
+    name = sm.GROUPED if E else sm.NAME
+    assert after.get(name, 0) - before.get(name, 0) == 1
+    assert torch.equal(got, sm._sliced_matmul(x, w, None, None, 1, bn))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        sm.sliced_matmul(x, w, None, None)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    rows = sm.block_rows(M)
+    assert len(kernels) == 1
+    assert f"sliced_matmul_kernel<{rows}, {bn}>" in kernels[0]
+
+
+def test_sliced_matmul_wide_tile_repeats_its_bits_over_graph_replays(cuda):
+    """One CUDA graph of wide-tile launches serves every width: replayed
+    with the widths changed between replays, each replay gives the bits
+    of an eager launch at those widths, and the first widths' bits come
+    back when they do."""
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    x = _randn(gen, 2048, 1536, dev=cuda)
+    wu, wd = _randn(gen, 1536, 8960, dev=cuda), _randn(gen, 8960, 1536,
+                                                      dev=cuda)
+    width = _i32(8960, cuda)
+
+    def step():
+        up = sm._sliced_matmul(x, wu, None, width, 1, sm.BN_WIDE)
+        return sm._sliced_matmul(up, wd, width, None, 1, sm.BN_WIDE)
+    s = torch.cuda.Stream(cuda)
+    s.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(s):
+        step()
+    s.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, stream=s):
+        out = step()
+    torch.cuda.synchronize()
+    first = None
+    for wv in (8960, 4480, 1000, 6656, 8960):
+        width.fill_(wv)
+        g.replay()
+        torch.cuda.synchronize()
+        eager = step()
+        assert torch.equal(out, eager), wv
+        if first is None:
+            first = out.clone()
+    assert torch.equal(out, first)
 
 
 def test_moe_switch_block_on_card_matches_mask(cuda):

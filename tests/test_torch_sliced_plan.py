@@ -16,7 +16,11 @@ For every (M, N, K, segments, active_in, active_out, grid) below:
 - the plan is a pure function of its arguments;
 - over a stack of E experts (MoE switch mode) all of this holds for every
   expert's tiles, a stack of one is the 2-d plan, and once E times the
-  live tiles fill the grid no tile is split.
+  live tiles fill the grid no tile is split;
+- the block tile's columns (128, or 256 where the tensor cores bound the
+  product) follow from the static shapes alone, never from the widths,
+  and all of the above holds in either tile at every shape the
+  benchmark's cells serve.
 """
 import numpy as np
 import pytest
@@ -78,6 +82,34 @@ GROUPED_CASES = [
 ]
 
 
+# the products the benchmark's cells serve, (M, N, K, segments, active_in,
+# active_out, grid[, E]), at the full and a narrow width: qwen2-1.5b's FFN
+# up and down and wo (2 segments of 768) at M = 128 Bb rows, Bb = 1-32;
+# mixtral-8x7b's expert stacks at C = 40-640 capacity slots and its wo (8
+# segments of 512) at M = 128-2048. The narrow widths are not multiples of
+# 256 where the subnets' are not (4480 = 17.5 x 256).
+SERVED_CASES = []
+for _bb in (1, 2, 4, 8, 16, 32):
+    _M = 128 * _bb
+    SERVED_CASES += [(_M, 8960, 1536, 1, None, None, 132),
+                     (_M, 8960, 1536, 1, None, 4480, 132),
+                     (_M, 1536, 8960, 1, None, None, 132),
+                     (_M, 1536, 8960, 1, 6656, None, 132),
+                     (_M, 1536, 1536, 2, None, None, 132),
+                     (_M, 1536, 1536, 2, 384, None, 132)]
+for _C in (40, 80, 160, 320, 640):
+    SERVED_CASES += [(_C, 14336, 4096, 1, None, None, 132, 8),
+                     (_C, 14336, 4096, 1, None, 7168, 132, 8),
+                     (_C, 4096, 14336, 1, None, None, 132, 8),
+                     (_C, 4096, 14336, 1, 10752, None, 132, 8)]
+for _M in (128, 256, 512, 1024, 2048):
+    SERVED_CASES += [(_M, 4096, 4096, 8, None, None, 132),
+                     (_M, 4096, 4096, 8, 256, None, 132)]
+# every case above once: the served products that the lists above lack
+PLAN_CASES = CASES + GROUPED_CASES + [
+    c for c in SERVED_CASES if c not in CASES + GROUPED_CASES]
+
+
 def _ids(case):
     ids = "M{}-N{}-K{}-seg{}-ai{}-ao{}-grid{}".format(*case[:7])
     return ids + "".join(f"-E{e}" for e in case[7:])
@@ -103,16 +135,24 @@ def _walk(plan):
     return cover, dead, units
 
 
-@pytest.mark.parametrize("case", CASES + GROUPED_CASES, ids=_ids)
+@pytest.mark.parametrize("case", PLAN_CASES, ids=_ids)
 def test_split_plan_covers_live_work_once(case):
-    M, N, K, nseg, ai, ao, grid = case[:7]
     plan = sm.split_plan(*case)
+    M, N, K, nseg = case[:4]
+    assert plan.bn == sm.block_cols(M, N, K, nseg, *(case[7:] or (1,)),
+                                    case[6])
+    _check_covers(case, plan)
+
+
+def _check_covers(case, plan):
+    M, N, K, nseg, ai, ao, grid = case[:7]
     cover, dead, _ = _walk(plan)
     seg = K // nseg
     ai_ = seg if ai is None else min(ai, seg)
     ao_ = N if ao is None else min(ao, N)
-    live_cols = -(-ao_ // sm.BN) if ai_ else 0
+    live_cols = -(-ao_ // plan.bn) if ai_ else 0
     assert plan.bm == sm.block_rows(M)
+    assert plan.n_tiles == -(-N // plan.bn)
     assert plan.m_tiles == -(-M // plan.bm)
     assert plan.live_n_tiles == live_cols
     assert plan.k_tiles == nseg * -(-ai_ // sm.BK)
@@ -127,9 +167,12 @@ def test_split_plan_covers_live_work_once(case):
         assert rows >= 1 and s * seg <= row and row + rows <= s * seg + ai_
 
 
-@pytest.mark.parametrize("case", CASES + GROUPED_CASES, ids=_ids)
+@pytest.mark.parametrize("case", PLAN_CASES, ids=_ids)
 def test_split_plan_sums_splits_in_order(case):
-    plan = sm.split_plan(*case)
+    _check_sums(sm.split_plan(*case))
+
+
+def _check_sums(plan):
     _, _, units = _walk(plan)
     for t in range(plan.live_tiles):
         n = units[(t, 0)][1]
@@ -145,7 +188,7 @@ def test_split_plan_sums_splits_in_order(case):
     assert len(units) == plan.units
 
 
-@pytest.mark.parametrize("case", CASES + GROUPED_CASES, ids=_ids)
+@pytest.mark.parametrize("case", PLAN_CASES, ids=_ids)
 def test_split_plan_is_a_pure_function(case):
     a = sm.split_plan(*case)
     b = sm.split_plan(*case)
@@ -159,9 +202,12 @@ def test_split_plan_is_a_pure_function(case):
     assert full == a
 
 
-@pytest.mark.parametrize("case", CASES + GROUPED_CASES, ids=_ids)
+@pytest.mark.parametrize("case", PLAN_CASES, ids=_ids)
 def test_split_plan_fits_its_scratch_and_grid(case):
-    plan = sm.split_plan(*case)
+    _check_fits(sm.split_plan(*case))
+
+
+def _check_fits(plan):
     grid = plan.grid
     if plan.splits > 1 or plan.extra > 0:
         # one fp32 slot per unit, one counter per live tile
@@ -237,3 +283,95 @@ def test_mixtral_and_llama4_stacks_split_nothing():
             down = sm.split_plan(C, d, f, 1, w, None, 132, E)
             assert up.splits == down.splits == 1
             assert up.extra == down.extra == 0
+
+
+@pytest.mark.parametrize("bn", [sm.BN, sm.BN_WIDE])
+@pytest.mark.parametrize("case", PLAN_CASES, ids=_ids)
+def test_split_plan_in_either_tile(case, bn):
+    """Each tile forced, whatever block_cols picks: every live (tile, K
+    step) once, every dead tile once, the splits in order in consecutive
+    slots, within the scratch. There is no 64 x 256 tile."""
+    if bn == sm.BN_WIDE and sm.block_rows(case[0]) < 128:
+        with pytest.raises(ValueError):
+            sm.split_plan(*case, bn=bn)
+        return
+    plan = sm.split_plan(*case, bn=bn)
+    assert plan.bn == bn
+    _check_covers(case, plan)
+    _check_sums(plan)
+    _check_fits(plan)
+
+
+# the tile block_cols picks at each served product, as measured on the
+# H100 (the wide tile where it was the faster, PERF.md): qwen2-1.5b's FFN
+# up from M = 1024 rows, FFN down from M = 2048, wo at none of M <= 4096;
+# mixtral-8x7b's stacks from C = 160 slots, its wo from M = 1024
+def _wide_at(case) -> bool:
+    M, N, K, nseg = case[:4]
+    if len(case) > 7:
+        return M >= 160
+    if (N, K) == (8960, 1536):
+        return M >= 1024
+    if (N, K) == (1536, 8960):
+        return M >= 2048
+    if (N, K, nseg) == (4096, 4096, 8):
+        return M >= 1024
+    return False
+
+
+@pytest.mark.parametrize("case", SERVED_CASES, ids=_ids)
+def test_served_tile_follows_the_shape_rule(case):
+    """The tile is a function of the static shapes: every width of a shape
+    gets the same tile (one CUDA graph serves every subnet of an entry),
+    the wide one exactly where block_cols's rule and the measured table
+    put it, and up to M = 128 rows the plan is the 64- or 128-row one of
+    128 columns."""
+    M, N, K, nseg, ai, ao, grid = case[:7]
+    E = case[7] if len(case) > 7 else 1
+    seg = K // nseg
+    bns = {sm.split_plan(M, N, K, nseg, a, b, grid, E).bn
+           for a, b in ((None, None), (ai, ao), (1, 1), (seg // 2, N // 3),
+                        (0, N))}
+    pick = sm.block_cols(M, N, K, nseg, E, grid)
+    assert bns == {pick}
+    wide_tiles = E * -(-M // 128) * -(-N // sm.BN_WIDE)
+    k_steps = nseg * -(-seg // sm.BK)
+    rule = M > 128 and (wide_tiles >= sm.WIDE_ROUNDS * grid or (
+        2 * wide_tiles >= grid and k_steps >= sm.WIDE_DEEP))
+    assert (pick == sm.BN_WIDE) == rule == _wide_at(case)
+    if M <= 128:
+        assert sm.split_plan(*case) == sm.split_plan(*case, bn=sm.BN)
+
+
+def test_block_cols_follow_the_shape():
+    """No 64 x 256 tile: up to M = 128 the tile has 128 columns whatever
+    the rest; past it the wide tile once its tiles fill two grids, or half
+    a grid over 64 K steps, and the grid is the card's own."""
+    for N, K, nseg, E in ((8960, 1536, 1, 1), (14336, 4096, 1, 128),
+                          (1536, 8960, 1, 1), (136, 264, 1, 1)):
+        assert [sm.block_cols(M, N, K, nseg, E, 132)
+                for M in (1, 64, 128)] == [sm.BN] * 3
+    # FFN up (24 K steps): two grids of wide tiles from M = 1024
+    assert [sm.block_cols(M, 8960, 1536, 1, 1, 132)
+            for M in (512, 896, 1024)] == [sm.BN, sm.BN, sm.BN_WIDE]
+    # FFN down (140 K steps): half a grid of wide tiles from M = 1408
+    assert [sm.block_cols(M, 1536, 8960, 1, 1, 132)
+            for M in (1280, 1408)] == [sm.BN, sm.BN_WIDE]
+    # a card of 8 SMs takes the wide tile sooner, one of 528 later
+    assert sm.block_cols(384, 1536, 1536, 2, 1, 8) == sm.BN_WIDE
+    assert sm.block_cols(4096, 1536, 1536, 2, 1, 528) == sm.BN
+
+
+@pytest.mark.parametrize("C", [320, 640])
+def test_mixtral_stacks_at_burst_capacities_split_nothing(C):
+    """The burst steps' expert stacks (C = 320 and 640 slots, B = 8 and 16
+    prompts of 128 tokens) fill the grid with whole tiles in either tile,
+    at every width option."""
+    E, d, f = 8, 4096, 14336
+    for bn in (sm.BN, sm.BN_WIDE, None):
+        for w in (f // 2, 3 * f // 4, f):
+            up = sm.split_plan(C, f, d, 1, None, w, 132, E, bn=bn)
+            down = sm.split_plan(C, d, f, 1, w, None, 132, E, bn=bn)
+            assert up.splits == down.splits == 1
+            assert up.extra == down.extra == 0
+
